@@ -1,0 +1,135 @@
+"""Stacked-hourglass backbone (Newell et al., arXiv:1603.06937) as ``nn.Module``s.
+
+Port of ``dsnt_pose2d_tpu/models/hourglass.py``: the same topology and the
+same submodule names as the flax modules (``stem_conv``, ``hg0.up1_d4``,
+``post_res0``, ...), so flax variables map onto the state dict one to one
+(:mod:`.from_jax`).  Inputs are NHWC like the JAX package's; the convs run
+NCHW inside.  With ``dtype=torch.bfloat16`` the convs run under bf16
+autocast while parameters and BN statistics stay fp32, as flax does.
+BatchNorm is eval-mode only in this forward-only port (eps 1e-5).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_BN_EPS = 1e-5
+
+
+def _bn(ch: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(ch, eps=_BN_EPS)
+
+
+class Bottleneck(nn.Module):
+    """Pre-activation bottleneck: BN-ReLU-1x1 -> BN-ReLU-3x3 -> BN-ReLU-1x1.
+
+    Output channels are ``2 * planes``; when the input width differs, the
+    skip is a 1x1 projection of the first BN-ReLU's output.
+    """
+
+    def __init__(self, in_ch: int, planes: int):
+        super().__init__()
+        out_ch = 2 * planes
+        self.bn1 = _bn(in_ch)
+        self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False)
+        self.bn2 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn3 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
+        self.proj = (nn.Conv2d(in_ch, out_ch, 1, bias=False)
+                     if in_ch != out_ch else None)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(x))
+        residual = x if self.proj is None else self.proj(y)
+        y = self.conv1(y)
+        y = self.conv2(F.relu(self.bn2(y)))
+        y = self.conv3(F.relu(self.bn3(y)))
+        return y + residual
+
+
+class Hourglass(nn.Module):
+    """One recursive hourglass of ``depth`` levels over ``features`` channels."""
+
+    def __init__(self, depth: int = 4, features: int = 256):
+        super().__init__()
+        self.depth = depth
+        planes = features // 2
+        for d in range(depth, 0, -1):
+            for name in ("up1", "low1", "low3"):
+                self.add_module(f"{name}_d{d}", Bottleneck(features, planes))
+        self.add_module("low2_d1", Bottleneck(features, planes))
+
+    def _level(self, x, d: int):
+        up1 = getattr(self, f"up1_d{d}")(x)
+        low = getattr(self, f"low1_d{d}")(F.max_pool2d(x, 2, 2))
+        low = self._level(low, d - 1) if d > 1 else self.low2_d1(low)
+        low = getattr(self, f"low3_d{d}")(low)
+        return up1 + F.interpolate(low, scale_factor=2, mode="nearest")
+
+    def forward(self, x):
+        return self._level(x, self.depth)
+
+
+class HourglassNet(nn.Module):
+    """Stacked hourglass producing per-stack raw score maps.
+
+    Input ``(B, S_in, S_in, 3)`` NHWC normalized images; output raw heatmaps
+    ``(num_stacks, B, J, S_in / 4, S_in / 4)`` in fp32 whatever the compute
+    dtype.
+    """
+
+    def __init__(self, num_stacks: int = 8, num_joints: int = 16,
+                 features: int = 256, depth: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_stacks = num_stacks
+        self.dtype = dtype
+        planes = features // 2
+        # Symmetric (3, 3) stem padding: the torch/Newell convention the JAX
+        # package pins explicitly (MODEL_VERSION 2).
+        self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.stem_bn = _bn(64)
+        self.stem_res1 = Bottleneck(64, 64)
+        self.stem_res2 = Bottleneck(128, planes)
+        self.stem_res3 = Bottleneck(features, planes)
+        for i in range(num_stacks):
+            self.add_module(f"hg{i}", Hourglass(depth, features))
+            self.add_module(f"post_res{i}", Bottleneck(features, planes))
+            self.add_module(f"fc{i}_conv", nn.Conv2d(features, features, 1,
+                                                      bias=False))
+            self.add_module(f"fc{i}_bn", _bn(features))
+            self.add_module(f"score{i}", nn.Conv2d(features, num_joints, 1))
+            if i < num_stacks - 1:
+                self.add_module(f"fc_back{i}", nn.Conv2d(features, features, 1))
+                self.add_module(f"score_back{i}",
+                                nn.Conv2d(num_joints, features, 1))
+
+    def _autocast(self, x):
+        if self.dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(x.device.type, dtype=self.dtype)
+
+    def forward(self, images):
+        x = images.permute(0, 3, 1, 2)
+        with self._autocast(x):
+            x = F.relu(self.stem_bn(self.stem_conv(x)))
+            x = self.stem_res1(x)
+            x = F.max_pool2d(x, 2, 2)
+            x = self.stem_res3(self.stem_res2(x))
+            scores = []
+            for i in range(self.num_stacks):
+                y = getattr(self, f"hg{i}")(x)
+                y = getattr(self, f"post_res{i}")(y)
+                y = F.relu(getattr(self, f"fc{i}_bn")(
+                    getattr(self, f"fc{i}_conv")(y)))
+                score = getattr(self, f"score{i}")(y)
+                scores.append(score)
+                if i < self.num_stacks - 1:
+                    x = (x + getattr(self, f"fc_back{i}")(y)
+                         + getattr(self, f"score_back{i}")(score))
+        return torch.stack(scores, dim=0).to(torch.float32)

@@ -1,0 +1,134 @@
+"""The port's hourglass, loaded through ``hourglass_from_jax``, against the
+flax forward in eval mode on the same weights and batch.
+
+fp32: rtol 1e-4 / atol 2e-4, the bar of ``tests/test_export_torch.py`` (two
+frameworks' conv sums in different orders), TF32 off.  bf16: both sides
+round activations to bf16 (8 mantissa bits) at different places, so the
+heatmaps are held at 5% of their largest magnitude, and the port's distance
+from the fp32 forward at twice the JAX package's own bf16 distance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dsnt_pose2d_tpu import ops as jops
+from dsnt_pose2d_tpu.models.factory import build_pose_model as j_build
+from dsnt_pose2d_tpu.models.hourglass import HourglassNet as JHourglassNet
+from dsnt_pose2d_tpu.utils.config import ModelConfig as JModelConfig
+from dsnt_pose2d_tpu_torch import ops as tops
+from dsnt_pose2d_tpu_torch.device import strict_fp32
+from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+from dsnt_pose2d_tpu_torch.models.from_jax import hourglass_from_jax
+from dsnt_pose2d_tpu_torch.models.hourglass import HourglassNet
+from dsnt_pose2d_tpu_torch.utils.config import ModelConfig
+
+STACKS, FEATS, J, SIZE = 2, 32, 16, 64
+
+
+def perturb(variables, seed=0):
+    """Non-trivial BN statistics/affines and biases, so the mapping of every
+    tensor shows in the output (flax initialises mean 0, var 1, scale 1)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = path[-1].key
+        x = np.array(x)
+        if name == "mean":
+            return x + rng.normal(0, 0.1, x.shape).astype(np.float32)
+        if name in ("var", "scale"):
+            return x * rng.uniform(0.6, 1.4, x.shape).astype(np.float32)
+        if name == "bias":
+            return x + rng.normal(0, 0.05, x.shape).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
+
+
+@pytest.fixture(scope="module")
+def images():
+    rng = np.random.default_rng(11)
+    return (rng.normal(size=(2, SIZE, SIZE, 3)) * 0.5).astype(np.float32)
+
+
+def _pair(dtype_j, dtype_t, images):
+    flax_model = JHourglassNet(num_stacks=STACKS, num_joints=J, features=FEATS,
+                               dtype=dtype_j)
+    variables = perturb(flax_model.init(jax.random.PRNGKey(3),
+                                        jnp.asarray(images), train=False))
+    net = HourglassNet(num_stacks=STACKS, num_joints=J, features=FEATS,
+                       dtype=dtype_t)
+    state = {k: torch.from_numpy(v) for k, v in
+             hourglass_from_jax(variables, STACKS).items()}
+    net.load_state_dict(state, strict=True)
+    net.eval()
+    return flax_model, variables, net
+
+
+def _forward_both(flax_model, variables, net, images):
+    hm_j = np.asarray(flax_model.apply(variables, jnp.asarray(images),
+                                       train=False))
+    with torch.inference_mode(), strict_fp32():
+        hm_t = net(torch.from_numpy(images)).numpy()
+    return hm_j, hm_t
+
+
+def test_hourglass_fp32_matches_flax(images):
+    hm_j, hm_t = _forward_both(*_pair(jnp.float32, torch.float32, images),
+                               images)
+    assert hm_t.shape == hm_j.shape == (STACKS, 2, J, SIZE // 4, SIZE // 4)
+    assert hm_t.dtype == np.float32
+    np.testing.assert_allclose(hm_t, hm_j, rtol=1e-4, atol=2e-4)
+    cj = np.asarray(jops.dsnt(jops.flat_softmax(jnp.asarray(hm_j[-1]))))
+    ct = tops.dsnt(tops.flat_softmax(torch.from_numpy(hm_t[-1]))).numpy()
+    np.testing.assert_allclose(ct, cj, atol=1e-5)
+
+
+def test_hourglass_bf16_matches_flax(images):
+    flax_model, variables, net = _pair(jnp.bfloat16, torch.bfloat16, images)
+    hm_j, hm_t = _forward_both(flax_model, variables, net, images)
+    assert hm_t.dtype == np.float32 and hm_j.dtype == np.float32
+    scale = np.abs(hm_j).max()
+    np.testing.assert_allclose(hm_t, hm_j, rtol=0, atol=0.05 * scale)
+    # Against the fp32 forward on the same weights, the port's bf16 error
+    # stays within twice the JAX package's own bf16 error.
+    net32 = HourglassNet(num_stacks=STACKS, num_joints=J, features=FEATS)
+    net32.load_state_dict(net.state_dict(), strict=True)
+    _, hm_32 = _forward_both(flax_model, variables, net32.eval(), images)
+    assert np.abs(hm_t - hm_32).max() <= 2 * np.abs(hm_j - hm_32).max()
+
+
+def test_posenet_loads_flax_posenet_variables(images):
+    kw = dict(base="hg2", hg_features=FEATS, input_size=SIZE, dtype="float32",
+              reg="js")
+    jmodel = j_build(JModelConfig(**kw))
+    variables = perturb(jmodel.init_variables(jax.random.PRNGKey(0)), seed=1)
+    state = hourglass_from_jax(variables, STACKS)
+    assert all(k.startswith("backbone.") for k in state)
+    model = build_pose_model(ModelConfig(**kw), device="cpu", state_dict=state)
+    out_j = np.asarray(jmodel.forward(variables, jnp.asarray(images)).heatmaps)
+    with torch.inference_mode(), strict_fp32():
+        out_t = model.forward(torch.from_numpy(images)).numpy()
+    np.testing.assert_allclose(out_t, out_j, rtol=1e-4, atol=2e-4)
+
+
+def test_seeded_init_is_deterministic():
+    cfg = ModelConfig(base="hg1", hg_features=FEATS, input_size=SIZE)
+    a = build_pose_model(cfg, device="cpu", seed=5).net.state_dict()
+    b = build_pose_model(cfg, device="cpu", seed=5).net.state_dict()
+    c = build_pose_model(cfg, device="cpu", seed=6).net.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["backbone.stem_conv.weight"],
+                           c["backbone.stem_conv.weight"])
+    w = a["backbone.hg0.up1_d4.conv2.weight"]
+    # LeCun-normal: variance 1 / fan_in, as flax's default conv init.
+    fan_in = w[0].numel()
+    assert abs(float(w.var()) * fan_in - 1.0) < 0.1
+
+
+@pytest.mark.parametrize("base", ["resnet50", "vit_s16"])
+def test_other_bases_not_ported(base):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_pose_model(ModelConfig(base=base), device="cpu")
