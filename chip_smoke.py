@@ -3,10 +3,11 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, drives the serving and eval
-steps of the flagship config (``configs/hg8_dsnt_js_train.json``: 8-stack
-hourglass, 256 features, 256-px input, bf16 backbone, fused DSNT head with
-the JS regularizer, shear warp) at batch 32 on 384-px synthetic canvases,
-and times the kernels and the steps with CUDA events.
+steps and then the train step of the flagship config
+(``configs/hg8_dsnt_js_train.json``: 8-stack hourglass, 256 features, 256-px
+input, bf16 backbone with fp32 params, fused DSNT head with the JS
+regularizer, shear warp with rotation, RMSProp) at batch 32 on 384-px
+synthetic canvases, and times the kernels and the steps.
 
 Run from the root of a checkout, with no arguments:
 
@@ -22,8 +23,10 @@ beside this script, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -37,7 +40,7 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "hg8_dsnt_js_train.json"
 BATCH = 32
 CANVAS = 384
-STEPS = 3                  # eval and infer steps in the counted main-path run
+STEPS = 3                  # eval, infer and train steps in the counted runs
 REPS = 25                  # timed windows per measurement (median reported)
 WARMUP = 3
 BACK_TO_BACK = 20          # kernel calls queued in one window: host time hidden
@@ -53,14 +56,27 @@ STEP_TOL = {"loss_rtol": 1e-5, "pred_orig_atol_px": 1e-2}
 # two fp32 paths to the same bilinear sample, rounded differently (one 8-bit
 # gray level is 1.7e-2 here).
 WARP_ATOL = 1e-4
-ROW_SHIFT_SHAPES = {           # (rows, row length, out length), stride 3
-    "eval_pass1": (12288, 1176, 1158),
-    "eval_pass3": (8192, 786, 768),
-    "train_xshear": (6144, 3864, 2502),
-    "train_yshear": (4096, 1674, 768),
-}
 HEATMAP_STD = 3.0          # logit std the score convs are scaled to
 HEAD_FLOPS_PER_ELEMENT = {"none": 7, "var": 12, "mse": 15, "kl": 20, "js": 25}
+# The backward recomputes the forward's softmax and Gaussian, then u, <z, u>
+# and dh; a transcendental counts as one operation.
+HEAD_BWD_FLOPS_PER_ELEMENT = {"none": 12, "var": 20, "mse": 22, "kl": 28,
+                              "js": 36}
+# The head's backward against its plain version, and the plain backward
+# against torch.autograd of the plain forward: dh = z (u - <z, u>) keeps a
+# few fp32 ulps of |u|, and |u| reaches ~1e2 where KL's log(g + eps) meets a
+# pixel far from the target (|dh| up to ~19 at random cotangents), so atol
+# is 5e-6 of the case's largest |dh|, at least 2e-6; rtol 1e-4.
+HEAD_BWD_TOL = {"atol": 2e-6, "atol_of_max": 5e-6, "rtol": 1e-4}
+# The first train step against the same step with both plain versions forced
+# (head forward and backward, row_shift), from the same weights and draws:
+# the images and heatmaps are bitwise equal (row_shift is, the forward convs
+# are deterministic), so the loss moves only by the head's forward (4096
+# rows, each within 1e-5) and dL/dheatmaps only by its backward (within
+# 1e-4 of its largest value).  The grad norm passes through cuDNN's bf16
+# backward, whose weight-gradient reductions use atomics in no fixed order:
+# two runs of the same step differ there, so it is held at 1e-2.
+TRAIN_TOL = {"loss_rtol": 1e-5, "dheat_rel_to_max": 1e-4, "grad_norm_rtol": 1e-2}
 
 
 def emit(phase: str, **fields):
@@ -97,36 +113,111 @@ def time_ms(fn, spread: bool = False, per_window: int = 1):
     return (med, min(times), max(times)) if spread else med
 
 
-def device_ms(fn, calls: int = BACK_TO_BACK) -> float:
-    """Device time per ``fn()`` call: the summed durations of the device
-    activities that ``torch.profiler`` records over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
+def on_device(event) -> bool:
+    """A device activity of a profile, not a range that a user annotation
+    (``Optimizer.step#RMSprop.step``) draws over the device's timeline."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
 
-    fn()
+
+PROFILE_ATTEMPTS = 4
+# torch.profiler (torch 2.11, NVIDIA H100 80GB HBM3) has returned a profile
+# with no device activity at all, and, once the train step had been
+# profiled, later profiles in the same process lacked device activities: a
+# few per profile at first, and on one machine nearly all of them (2 of the
+# 10 expected, then 0 of 20).  The cause is not known.  Kernel times
+# (``device_ms``) are therefore taken with CUDA events and no profiler; the
+# profiler only breaks a step down (``profile_step``).  A step's profile is
+# used only when every ported kernel appears in it as many times as the
+# launch counters say the step launched it; device activities that start
+# before the profile's first host event (a previous profile's) are not
+# counted.  An incomplete profile is taken again, up to PROFILE_ATTEMPTS
+# times, and then the run fails.
+
+
+def _device_events(prof) -> list:
+    """The profile's device activities that start after its first host
+    event."""
+    events = prof.events()
+    first = min((e.time_range.start for e in events if not on_device(e)),
+                default=-math.inf)
+    return [e for e in events if on_device(e) and e.time_range.start >= first]
+
+
+SPIN_RETAKES = 8
+
+
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles that ``torch.cuda._sleep`` spins per ms on this card."""
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def device_ms(fn, calls: int = BACK_TO_BACK) -> tuple[float, dict]:
+    """Device time per ``fn()`` call with the host's time left out: the
+    median over REPS windows, each ``calls`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``) that holds the card until the host has
+    queued them all, and timed by CUDA events around the calls, so the card
+    runs them back to back.  A window counts only if the card was still
+    spinning when the host had queued the last call (the start event not
+    yet reached).  Otherwise the spin is doubled, the calls per window are
+    halved (a full launch queue also stalls the host), and the windows are
+    taken again; after SPIN_RETAKES retakes the run fails.  Returns the
+    time and how it was found."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spin_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    torch.cuda.synchronize()
+    times, retakes = [], 0
+    while len(times) < REPS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
         for _ in range(calls):
             fn()
+        end.record()
+        held = not start.query()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / calls
+        if held:
+            times.append(start.elapsed_time(end) / calls)
+            continue
+        retakes += 1
+        if retakes > SPIN_RETAKES:
+            raise RuntimeError(f"the host did not queue {calls} calls within a "
+                               f"{spin_ms:.1f} ms spin of the card after "
+                               f"{SPIN_RETAKES} retakes")
+        spin_ms, calls, times = 2 * spin_ms, max(1, calls // 2), []
+    return statistics.median(times), {"calls_per_window": calls,
+                                      "spin_ms": spin_ms, "retakes": retakes}
 
 
 def kernel_times(fn, plain_fn, library_fn=None) -> dict:
     """A kernel, its plain version and (if any) the library call, each timed
-    three ways: profiler device time per call (``ms``, the figure reported:
-    no host time in it), back to back in one CUDA-event window (host time
-    hidden only where the device outruns the host's launches), and one call
-    per window (host dispatch included)."""
+    three ways: device time per call (``ms``, the figure reported: no host
+    time in it, see ``device_ms``; ``<key>_spin`` says how it was found),
+    back to back in one CUDA-event window with no spin (host time hidden
+    only where the device outruns the host's launches), and one call per
+    window (host dispatch included)."""
     out = {}
     for key, f in (("ms", fn), ("plain_ms", plain_fn), ("library_ms", library_fn)):
         if f is None:
             out[key] = None
             continue
-        out[key] = device_ms(f)
+        out[key], out[f"{key}_spin"] = device_ms(f)
         out[f"{key}_back_to_back"] = time_ms(f, per_window=BACK_TO_BACK)
         out[f"{key}_one_call"] = time_ms(f)
     return out
@@ -215,34 +306,119 @@ def phase_head_vs_plain(dev):
          max_reg_err=max(r["reg_err"] for r in results))
 
 
-def row_shift_inputs(r, length, out, stride, seed, dev):
+def assert_dh_close(got, exp):
+    atol = max(HEAD_BWD_TOL["atol"],
+               HEAD_BWD_TOL["atol_of_max"] * exp.abs().max().item())
+    torch.testing.assert_close(got, exp, atol=atol, rtol=HEAD_BWD_TOL["rtol"])
+
+
+def compare_head_bwd(raw, t, gc, gr, reg, preact, threshold=0.5):
+    """dL/draw through the fused head's autograd Function (both kernels)
+    against the plain backward, and the plain backward against
+    ``torch.autograd`` of the plain forward; returns both max errors."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
+                                                fused_dsnt_head_bwd_reference,
+                                                fused_dsnt_head_reference)
+
+    kw = dict(sigma_px=1.0, reg=reg, preact=preact, threshold=threshold)
+
+    def grad_through(fn):
+        x = raw.clone().requires_grad_(True)
+        coords, regv = fn(x, t, **kw)
+        if regv is None:
+            coords.backward(gc)
+        else:
+            torch.autograd.backward([coords, regv], [gc, gr])
+        return x.grad
+
+    got = grad_through(fused_dsnt_head)
+    plain = fused_dsnt_head_bwd_reference(raw, t, gc, None if reg == "none" else gr,
+                                          **kw)
+    auto = grad_through(fused_dsnt_head_reference)
+    torch.cuda.synchronize()
+    assert_dh_close(got, plain)
+    assert_dh_close(plain, auto)
+    return (got - plain).abs().max().item(), (plain - auto).abs().max().item()
+
+
+def phase_head_bwd_vs_plain(dev):
+    from dsnt_pose2d_tpu_torch.ops.cuda import PREACT_KINDS, REG_KINDS
+
+    errs = []
+    for (n, h, w) in ((4096, 64, 64), (512, 7, 9)):
+        raw, t = head_inputs(n, h, w, seed=h * w + 1, dev=dev)
+        g = torch.Generator().manual_seed(n)
+        gc = torch.randn((n, 2), generator=g).to(dev)
+        gr = torch.randn((n,), generator=g).to(dev)
+        for reg in REG_KINDS:
+            for preact in PREACT_KINDS:
+                errs.append(compare_head_bwd(raw, t, gc, gr, reg, preact))
+    emit("head_bwd_vs_plain", cases=len(errs), shapes=[[4096, 4096], [512, 63]],
+         tolerance=HEAD_BWD_TOL,
+         max_kernel_vs_plain_err=max(e[0] for e in errs),
+         max_plain_vs_autograd_err=max(e[1] for e in errs))
+    return max(e[0] for e in errs)
+
+
+def random_row_shift_inputs(call, seed):
+    """Random rows, window starts and fracs at the shape of a recorded call."""
+    rows, starts, _, out, stride = call
+    r, length = rows.shape
     g = torch.Generator().manual_seed(seed)
-    rows = torch.rand((r, length), generator=g)
     px = torch.randint(0, (length - out - stride) // stride + 1, (r,),
                        generator=g)
-    starts = (px * stride).to(torch.int32)
-    fracs = torch.rand((r,), generator=g)
-    return rows.to(dev), starts.to(dev), fracs.to(dev)
+    return (torch.rand((r, length), generator=g).to(rows.device),
+            (px * stride).to(torch.int32).to(rows.device),
+            torch.rand((r,), generator=g).to(rows.device), out, stride)
 
 
-def phase_row_shift_vs_plain(dev):
+def phase_row_shift_vs_plain(recorded):
+    """row_shift against its plain version, bitwise, at every shape that the
+    main path's counted runs gave it: on the inputs the path gave it, and on
+    random rows, starts and fracs of the same shape (the eval crop has no
+    shear, so its fracs are 0; random ones exercise the lerp)."""
     from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
 
-    checked, max_err = {}, 0.0
-    for name, (r, length, out) in ROW_SHIFT_SHAPES.items():
-        rows, starts, fracs = row_shift_inputs(r, length, out, 3, r, dev)
-        got = shift_rows(rows, starts, fracs, out, stride=3)
-        exp = shift_rows_reference(rows, starts, fracs, out, stride=3)
-        torch.cuda.synchronize()
-        if not torch.equal(got, exp):
-            raise AssertionError(
-                f"row_shift {name} differs from its plain version: max "
-                f"{(got - exp).abs().max().item()}")
-        checked[name] = [r, length, out]
-        max_err = max(max_err, (got - exp).abs().max().item())
+    checked = {}
+    for path, calls in recorded.items():
+        for i, (shape, call) in enumerate(calls.items()):
+            for inputs in (call, random_row_shift_inputs(call, seed=i)):
+                rows, starts, fracs, out, stride = inputs
+                got = shift_rows(rows, starts, fracs, out, stride=stride)
+                exp = shift_rows_reference(rows, starts, fracs, out, stride=stride)
+                torch.cuda.synchronize()
+                if not torch.equal(got, exp):
+                    raise AssertionError(
+                        f"row_shift {path} {shape} differs from its plain "
+                        f"version: max {(got - exp).abs().max().item()}")
+            checked.setdefault(path, []).append(list(shape))
     emit("row_shift_vs_plain", bitwise_equal=True, shapes=checked,
-         max_abs_err=max_err)
-    return max_err
+         inputs=["main path", "random"], max_abs_err=0.0)
+    return 0.0
+
+
+@contextlib.contextmanager
+def recording_row_shift(calls: dict):
+    """The shear warp's row_shift calls pass on to the kernel; the first
+    call of each ``(rows, row length, out length)`` is kept in ``calls``
+    as ``(rows, starts, fracs, out, stride)``."""
+    from dsnt_pose2d_tpu_torch.data import augment
+
+    kernel = augment.shift_rows
+
+    def record(rows, starts, fracs, out, stride=1):
+        key = (*rows.shape, out)
+        if key not in calls:
+            with torch.inference_mode(False):   # plain tensors, not inference ones
+                calls[key] = (rows.clone(), starts.clone(), fracs.clone(), out,
+                              stride)
+        return kernel(rows, starts, fracs, out, stride)
+
+    augment.shift_rows = record
+    try:
+        yield calls
+    finally:
+        augment.shift_rows = kernel
 
 
 @contextlib.contextmanager
@@ -257,6 +433,24 @@ def plain_row_shift():
         yield
     finally:
         augment.shift_rows = kernel
+
+
+@contextlib.contextmanager
+def plain_head():
+    """The fused head's autograd Function with the plain forward and plain
+    backward in place of its two kernels."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import dsnt_head
+
+    def plain_bwd(raw2, t2, g_coords, g_reg, h, w, *args):
+        return dsnt_head.fused_dsnt_head_bwd_reference(
+            raw2.view(-1, h, w), t2, g_coords, g_reg, *args).reshape(-1, h * w)
+
+    kernels = dsnt_head._launch_fwd, dsnt_head._launch_bwd
+    dsnt_head._launch_fwd, dsnt_head._launch_bwd = dsnt_head._plain_fwd, plain_bwd
+    try:
+        yield
+    finally:
+        dsnt_head._launch_fwd, dsnt_head._launch_bwd = kernels
 
 
 def synthetic_batch(dev):
@@ -283,21 +477,27 @@ def build_flagship(dev, **model_overrides):
     return cfg, build_pose_model(cfg.model, device=dev, seed=0)
 
 
-def temper_scores(net, images, target_std=HEATMAP_STD):
+def temper_scores(net, images, target_std=HEATMAP_STD, train=False):
     """Scales each stack's score conv so its heatmap logits have std
-    ``target_std`` on these images, stack by stack (a stack's scores feed
-    the next stack through ``score_back``).
+    ``target_std`` on these images, in eval or train mode, stack by stack (a
+    stack's scores feed the next stack through ``score_back``).  The BN
+    running statistics are left as they were.
 
     The random-init hg8's residual sums grow from stack to stack, to logits
-    of std ~1e5-1e6 at the last one, where every softmax row is one-hot;
-    tempered, the main path drives the head on real softmax rows."""
+    of std ~1e5-1e6 at the last one in eval mode, where every softmax row is
+    one-hot; train-mode BN renormalises them, to a nearly uniform softmax.
+    Tempered, the main path drives the head on real softmax rows."""
     hg = net.backbone
-    with torch.inference_mode():
+    buffers = {k: v.clone() for k, v in net.named_buffers()}
+    net.train(train)
+    with torch.no_grad():
         for i in range(hg.num_stacks):
             conv = getattr(hg, f"score{i}")
             scale = target_std / net(images)[i].std().item()
             conv.weight.mul_(scale)
             conv.bias.mul_(scale)
+        for k, v in net.named_buffers():
+            v.copy_(buffers[k])
 
 
 def phase_serve(dev):
@@ -316,17 +516,19 @@ def phase_serve(dev):
     with torch.inference_mode():
         pre = preprocess_batch(*pre_args, cfg.data, model.input_size,
                                canvas_margin=batch["canvas_margin"])
-    temper_scores(model.net, pre["images"])
+    temper_scores(model.net, pre["images"], train=False)
     eval_step = make_eval_fn(model, cfg, device=dev)
     infer_step = make_infer_fn(model, cfg, device=dev)
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
-    outs = [eval_step(batch) for _ in range(STEPS)]
-    served = [infer_step(batch) for _ in range(STEPS)]
+    with recording_row_shift({}) as row_shift_calls:
+        outs = [eval_step(batch) for _ in range(STEPS)]
+        served = [infer_step(batch) for _ in range(STEPS)]
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = {"dsnt_head_fwd": 3 * STEPS, "row_shift": 4 * STEPS}
+    expected = {"dsnt_head_fwd": 3 * STEPS, "dsnt_head_bwd": 0,
+                "row_shift": 4 * STEPS}
     if launches != expected:
         raise AssertionError(f"main-path launches {launches}, expected {expected}")
 
@@ -363,7 +565,7 @@ def phase_serve(dev):
     kernels.reset_launch_counts()
     ref = plain_eval(batch)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"dsnt_head_fwd": 0, "row_shift": 0}
+    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
     loss_rel = abs(out["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
     pred_err = (pred - ref["pred_orig"]).abs().max().item()
     if (loss_rel > STEP_TOL["loss_rtol"]
@@ -402,6 +604,7 @@ def phase_serve(dev):
          warp_atol=WARP_ATOL, gt_roundtrip_err_px=gt_err)
     return {"cfg": cfg, "model": model, "batch": batch, "pre": pre,
             "heatmaps": heatmaps, "launches": launches,
+            "row_shift_calls": row_shift_calls,
             "eval_step": eval_step, "infer_step": infer_step,
             "plain_eval": plain_eval}
 
@@ -458,40 +661,43 @@ def row_shift_library(rows, starts, fracs, out, stride):
     return img, grid
 
 
-def phase_row_shift_timing(dev):
+def phase_row_shift_timing(recorded):
+    """row_shift timed on the inputs the main path gave it, with per-step
+    totals for each path (serve: the two calls of one eval step; train: the
+    two of one train step)."""
     from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
 
-    work, totals = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                        "library_ms": 0.0}
-    lib_err = 0.0
-    for name, (r, length, out) in ROW_SHIFT_SHAPES.items():
-        rows, starts, fracs = row_shift_inputs(r, length, out, 3, r + 1, dev)
-        img, grid = row_shift_library(rows, starts, fracs, out, 3)
-        lib = lambda: F.grid_sample(img, grid, mode="bilinear",
-                                    padding_mode="zeros", align_corners=True)
-        times = kernel_times(
-            lambda: shift_rows(rows, starts, fracs, out, stride=3),
-            lambda: shift_rows_reference(rows, starts, fracs, out, stride=3),
-            lib)
-        got = shift_rows(rows, starts, fracs, out, stride=3)
-        ref = lib()[:, :, 0, :].permute(0, 2, 1).reshape(r, out)
-        lib_err = max(lib_err, (got - ref).abs().max().item())
-        # Each row's window (out + stride values), its start and frac read
-        # once; the output written once.
-        nbytes = 4 * r * (out + 3) + 8 * r + 4 * r * out
-        b_ms, by = bound_ms(nbytes, 3 * r * out)
-        work[name] = {"shape": [r, length, out], **times, "bound_ms": b_ms,
-                      "bound_by": by, "bytes": nbytes,
-                      "GB_per_s": nbytes / times["ms"] / 1e6}
-        if name.startswith("eval"):
+    by_path, lib_err = {}, 0.0
+    for path, calls in recorded.items():
+        work, totals = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                            "library_ms": 0.0}
+        for (r, length, out), (rows, starts, fracs, _, stride) in calls.items():
+            img, grid = row_shift_library(rows, starts, fracs, out, stride)
+            lib = lambda: F.grid_sample(img, grid, mode="bilinear",
+                                        padding_mode="zeros", align_corners=True)
+            times = kernel_times(
+                lambda: shift_rows(rows, starts, fracs, out, stride=stride),
+                lambda: shift_rows_reference(rows, starts, fracs, out,
+                                             stride=stride),
+                lib)
+            got = shift_rows(rows, starts, fracs, out, stride=stride)
+            ref = lib()[:, :, 0, :].permute(0, 2, 1).reshape(r, out)
+            lib_err = max(lib_err, (got - ref).abs().max().item())
+            # Each row's window (out + stride values), its start and frac
+            # read once; the output written once.
+            nbytes = 4 * r * (out + stride) + 8 * r + 4 * r * out
+            b_ms, by = bound_ms(nbytes, 3 * r * out)
+            work[f"{r}x{length}->{out}"] = {
+                **times, "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+                "GB_per_s": nbytes / times["ms"] / 1e6}
             for k in ("ms", "plain_ms", "library_ms"):
                 totals[k] += times[k]
             totals["bound_ms"] += b_ms
+        by_path[path] = {**totals, "bound_by": "bytes", "per_call": work}
     # grid_sample rounds the normalized tap position in fp32 (rows of up to
     # 1288 px), so it agrees to ~1e-3, not bitwise.
     assert lib_err < 1e-2, f"grid_sample yardstick disagrees: {lib_err}"
-    return {**totals, "bound_by": "bytes", "per_call": work,
-            "library_err": lib_err}
+    return by_path, lib_err
 
 
 def phase_times(run, card):
@@ -520,43 +726,224 @@ def phase_times(run, card):
          clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
 
-def phase_profile(run, card):
-    """Device time by kernel over one infer and one eval step, and the
-    device's busy share of each step's wall time (torch.profiler)."""
+def profile_step(name, step, median_ms, card):
+    """Device time by kernel over one step, and the device's busy share of
+    the step's wall time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = run["batch"]
-    for name in ("infer_step", "eval_step"):
-        step = run[name]
-        step(batch)
-        torch.cuda.synchronize()
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+
+    step()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):     # see PROFILE_ATTEMPTS
+        kernels.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(batch)
+            step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = kernels.launch_counts()
         kernels_by_name, spans = {}, []
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
+        seen = dict.fromkeys(launched, 0)     # ported kernels' activities
+        for e in _device_events(prof):
             spans.append((e.time_range.start, e.time_range.end))
             ms, count = kernels_by_name.get(e.name, (0.0, 0))
             kernels_by_name[e.name] = (
                 ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
-        busy_us, reach = 0.0, -math.inf
-        for start, end in sorted(spans):      # union of the kernels' spans
-            if end > reach:
-                busy_us += end - max(start, reach)
-                reach = end
-        top = sorted(kernels_by_name.items(), key=lambda kv: -kv[1][0])
-        emit("profile", card=card, step=name, wall_ms=wall_ms,
-             device_busy_ms=busy_us / 1e3,
-             device_busy_share=busy_us / 1e3 / wall_ms,
-             busy_share_of_unprofiled_median=busy_us / 1e3 / run["step_ms"][name],
-             device_launches=len(spans),
-             top=[{"name": k[:90], "ms": ms, "count": c}
-                  for k, (ms, c) in top[:12]])
+            for k in seen:   # "(anonymous namespace)::row_shift_kernel(float ..."
+                seen[k] += re.search(rf"\b{k}_kernel\b", e.name) is not None
+        if spans and seen == launched:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no complete profile of "
+                           f"the {name} in {PROFILE_ATTEMPTS} attempts")
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted(spans):      # union of the kernels' spans
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    top = sorted(kernels_by_name.items(), key=lambda kv: -kv[1][0])
+    emit("profile", card=card, step=name, profiles=attempt, wall_ms=wall_ms,
+         device_busy_ms=busy_us / 1e3,
+         device_busy_share=busy_us / 1e3 / wall_ms,
+         busy_share_of_unprofiled_median=busy_us / 1e3 / median_ms,
+         device_launches=len(spans), ported_kernel_activities=seen,
+         top=[{"name": k[:90], "ms": ms, "count": c}
+              for k, (ms, c) in top[:12]])
+
+
+def phase_profile(run, card):
+    for name in ("infer_step", "eval_step"):
+        profile_step(name, lambda: run[name](run["batch"]), run["step_ms"][name],
+                     card)
+
+
+def phase_train(dev, card):
+    """The train step: the counted main-path run, the first step against the
+    same step on the plain versions, times, peak memory and a profile."""
+    from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
+
+    cfg, model = build_flagship(dev)
+    assert cfg.optim.optimizer == "rmsprop" and cfg.data.max_rotation_deg > 0
+    batch = synthetic_batch(dev)
+    pre_args = (batch["canvases"], batch["coords_px"], batch["mask"],
+                batch["head_length"], batch["canvas_from_orig"])
+    with torch.no_grad():
+        images = preprocess_batch(*pre_args, cfg.data, model.input_size,
+                                  canvas_margin=batch["canvas_margin"])["images"]
+    temper_scores(model.net, images, train=True)
+    start = {k: v.clone() for k, v in model.net.state_dict().items()}
+
+    grab = {"on": False, "heat": [], "dheat": []}
+
+    def capture(module, inputs, heatmaps):
+        # The first step's heatmaps and dL/dheatmaps at the head.
+        if grab["on"]:
+            grab["heat"].append(heatmaps.detach().clone())
+            heatmaps.register_hook(lambda g: grab["dheat"].append(g.detach().clone()))
+
+    model.net.register_forward_hook(capture)
+    train_step = make_train_fn(model, cfg, device=dev)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    metrics = []
+    with recording_row_shift({}) as row_shift_calls:
+        for i in range(STEPS):
+            grab["on"] = i == 0
+            metrics.append(train_step(batch))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    expected = {"dsnt_head_fwd": STEPS, "dsnt_head_bwd": STEPS,
+                "row_shift": 2 * STEPS}
+    if launches != expected:
+        raise AssertionError(f"train launches {launches}, expected {expected}")
+    losses = [m["loss"].item() for m in metrics]
+    assert all(math.isfinite(v) and v > 0 for v in losses), losses
+    assert train_step.state.step == STEPS
+
+    # The same first step with both plain versions forced, same weights and
+    # draws (the draws are a function of (seed, step) only).
+    plain_model = build_pose_model(cfg.model, device=dev, seed=0)
+    plain_model.net.load_state_dict(start)
+    plain_model.net.register_forward_hook(capture)
+    plain_step = make_train_fn(plain_model, cfg, device=dev)
+    grab["on"] = True
+    kernels.reset_launch_counts()
+    with plain_head(), plain_row_shift():
+        ref = plain_step(batch)
+    torch.cuda.synchronize()
+    grab["on"] = False
+    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+    first = metrics[0]
+    loss_rel = abs(first["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
+    dheat, dheat_ref = grab["dheat"]
+    dheat_err = (dheat - dheat_ref).abs().max().item()
+    dheat_rel = dheat_err / dheat_ref.abs().max().item()
+    norm_rel = (abs(first["grad_norm"].item() - ref["grad_norm"].item())
+                / ref["grad_norm"].item())
+    heat_equal = torch.equal(grab["heat"][0], grab["heat"][1])
+    if (not heat_equal or loss_rel > TRAIN_TOL["loss_rtol"]
+            or dheat_rel > TRAIN_TOL["dheat_rel_to_max"]
+            or norm_rel > TRAIN_TOL["grad_norm_rtol"]):
+        raise AssertionError(
+            f"train step, kernel path vs plain path: heatmaps bitwise "
+            f"equal {heat_equal}, loss rel {loss_rel}, "
+            f"dL/dheatmaps rel {dheat_rel}, grad norm rel {norm_rel}")
+    max_prob = torch.softmax(grab["heat"][0][-1].flatten(2), -1).amax(-1).mean()
+    emit("train_step", config=str(CONFIG.relative_to(ROOT)), batch=BATCH,
+         canvas=CANVAS, steps=STEPS, launches=launches, losses=losses,
+         grad_norms=[m["grad_norm"].item() for m in metrics],
+         euclidean=first["euclidean"].item(), reg=first["reg"].item(),
+         heatmap_logit_std=grab["heat"][0].std().item(),
+         last_stack_mean_max_prob=max_prob.item(),
+         plain_path={"loss": ref["loss"].item(), "loss_rel_diff": loss_rel,
+                     "heatmaps_bitwise_equal": heat_equal,
+                     "dheat_max_diff": dheat_err, "dheat_rel_to_max": dheat_rel,
+                     "grad_norm": ref["grad_norm"].item(),
+                     "grad_norm_rel_diff": norm_rel},
+         tolerance=TRAIN_TOL)
+
+    # Interleaved, as for the serve steps: kernel, plain, kernel.
+    def plain_train():
+        with plain_head(), plain_row_shift():
+            return plain_step(batch)
+
+    step_ms = time_ms(lambda: train_step(batch), spread=True)
+    plain_ms = time_ms(plain_train, spread=True)
+    step_ms_2 = time_ms(lambda: train_step(batch), spread=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit("train_step_times", card=card, batch=BATCH, batch_on_device=True,
+         train_ms=step_ms[0], train_img_per_s=BATCH / step_ms[0] * 1e3,
+         plain_path_train_ms=plain_ms[0], train_ms_again=step_ms_2[0],
+         spread_min_max_ms={"train": step_ms[1:], "plain_path_train": plain_ms[1:],
+                            "train_again": step_ms_2[1:]},
+         peak_mem_bytes=peak, resident_before_step_bytes=base,
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    profile_step("train_step", lambda: train_step(batch), step_ms[0], card)
+    return {"cfg": cfg, "batch": batch, "pre_args": pre_args, "launches": launches,
+            "row_shift_calls": row_shift_calls,
+            "heat": grab["heat"][0], "dheat": dheat, "model": model}
+
+
+def phase_head_bwd_on_main_path(train, card):
+    """The backward kernel on the train step's own heatmaps and cotangents,
+    checked against the step's dL/dheatmaps and its plain version, and timed."""
+    from dsnt_pose2d_tpu_torch.data.augment import (preprocess_batch,
+                                                    sample_train_draws)
+    from dsnt_pose2d_tpu_torch.ops import euclidean_losses
+    from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
+                                                fused_dsnt_head_bwd,
+                                                fused_dsnt_head_bwd_reference)
+    from dsnt_pose2d_tpu_torch.train.state import step_seed
+
+    cfg, heat = train["cfg"], train["heat"]
+    s, b, j, h, w = heat.shape
+    gen = torch.Generator(device=heat.device)
+    gen.manual_seed(step_seed(cfg.train.seed, 0))
+    with torch.no_grad():
+        pre = preprocess_batch(*train["pre_args"], cfg.data,
+                               cfg.model.resolved_input_size, train=True,
+                               canvas_margin=train["batch"]["canvas_margin"],
+                               draws=sample_train_draws(b, cfg.data, gen))
+    t = pre["coords"][None].expand(s, b, j, 2)
+    m = pre["mask"][None].expand(s, b, j)
+    kw = dict(sigma_px=cfg.model.hm_sigma, reg=cfg.model.reg,
+              preact=cfg.model.preact, threshold=cfg.model.hm_threshold)
+    # The cotangents of the head's outputs in the step's loss.
+    x = heat.clone().requires_grad_(True)
+    coords, regv = fused_dsnt_head(x, t, **kw)
+    per_joint = euclidean_losses(coords, t) + cfg.model.reg_coeff * regv
+    loss = ((per_joint * m).sum(dim=(1, 2)) / m.sum(dim=(1, 2)).clamp_min(1.0)).sum()
+    gc, gr = torch.autograd.grad(loss, (coords, regv))
+
+    got = fused_dsnt_head_bwd(heat, t, gc, gr, **kw)
+    exp = fused_dsnt_head_bwd_reference(heat, t, gc, gr, **kw)
+    torch.cuda.synchronize()
+    assert_dh_close(got, exp)
+    scale = exp.abs().max().item()
+    step_err = (got - train["dheat"]).abs().max().item()
+    assert step_err <= TRAIN_TOL["dheat_rel_to_max"] * scale, step_err
+    times = kernel_times(lambda: fused_dsnt_head_bwd(heat, t, gc, gr, **kw),
+                         lambda: fused_dsnt_head_bwd_reference(heat, t, gc, gr, **kw))
+    n = s * b * j
+    # raw read once, dh written once; targets and both cotangents read once.
+    nbytes = 8 * n * h * w + 4 * 5 * n
+    b_ms, by = bound_ms(nbytes, HEAD_BWD_FLOPS_PER_ELEMENT[cfg.model.reg] * n * h * w)
+    return {"max_abs_err": (got - exp).abs().max().item(), **times,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "rows": n, "hw": h * w, "bytes": nbytes,
+            "GB_per_s": nbytes / times["ms"] / 1e6, "dh_max_abs": scale,
+            "vs_train_step_dheat_max_diff": step_err}
 
 
 def main():
@@ -564,32 +951,54 @@ def main():
     dev = torch.device("cuda")
     phase_build()
     phase_head_vs_plain(dev)
-    shift_err = phase_row_shift_vs_plain(dev)
+    bwd_err = phase_head_bwd_vs_plain(dev)
     run = phase_serve(dev)
     head = phase_head_on_main_path(run)
     emit("dsnt_head_fwd_times", card=card, **head)
-    shift = phase_row_shift_timing(dev)
-    emit("row_shift_times", card=card, **shift)
     phase_times(run, card)
     phase_profile(run, card)
+    serve_launches = run["launches"]
+    recorded = {"serve": run["row_shift_calls"]}
+    del run
+    torch.cuda.empty_cache()
+    train = phase_train(dev, card)
+    recorded["train"] = train["row_shift_calls"]
+    bwd = phase_head_bwd_on_main_path(train, card)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
+    emit("dsnt_head_bwd_times", card=card, **bwd)
+    shift_err = phase_row_shift_vs_plain(recorded)
+    shift, shift_lib_err = phase_row_shift_timing(recorded)
+    emit("row_shift_times", card=card, by_path=shift, library_err=shift_lib_err)
 
+    def launches(name):
+        by_path = {"serve": serve_launches[name], "train": train["launches"][name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [
         {"name": "dsnt_head_fwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:184",
-         "launches": run["launches"]["dsnt_head_fwd"],
-         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")}},
+         **launches("dsnt_head_fwd"), "max_abs_err": head["max_abs_err"],
+         **{k: head[k] for k in keys}},
+        {"name": "dsnt_head_bwd", "route": "cuda",
+         "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
+         "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
+         **launches("dsnt_head_bwd"), "max_abs_err": bwd["max_abs_err"],
+         **{k: bwd[k] for k in keys}},
+        # ms and the other times: the two calls of one serve step; those of
+        # one train step are under by_path.
         {"name": "row_shift", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/row_shift.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/row_shift.py:57",
-         "launches": run["launches"]["row_shift"], "max_abs_err": shift_err,
-         **{k: shift[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}},
+         **launches("row_shift"), "max_abs_err": shift_err,
+         **{k: shift["serve"][k] for k in keys},
+         "by_path": {p: {k: v[k] for k in keys} for p, v in shift.items()}},
     ]
     for e in entries:
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(e[k]), (e["name"], k)
+        assert e["launches_by_path"]["train"] > 0, e["name"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

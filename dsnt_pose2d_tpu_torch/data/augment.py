@@ -1,21 +1,27 @@
-"""On-device eval preprocessing (port of the eval path of
-``dsnt_pose2d_tpu/data/augment.py``).
+"""On-device preprocessing (port of ``dsnt_pose2d_tpu/data/augment.py``).
 
     canvas (B, C, C, 3) uint8/float
-      -> one composed affine (center crop at ``eval_scale``) bilinear warp
+      -> one composed affine (crop * rotate * scale * flip) bilinear warp
+      -> per-channel color jitter (train)
       -> mean/std normalize
-    coords: same affine -> normalized (-1, 1); crop_from_orig for PCKh
+    coords: same affine + flip joint swap -> normalized (-1, 1);
+    crop_from_orig for PCKh
 
 The warp is either the shear decomposition (``warp_method='shear'``, the
 default: two passes of the row_shift kernel around two resampling products)
 or the direct bilinear gather (``'gather'``, its oracle).  For the eval
-path's rotation-free affine both give the same image.  The train path
-(random rotation/scale/flip, color jitter) is not ported yet.
+path's rotation-free affine both give the same image.
+
+The train path's random draws (rotation, scale, flip, jitter) are tensors
+that the caller passes in (:func:`sample_train_draws` makes them from a
+``torch.Generator``): torch cannot reproduce ``jax.random``'s bits, so the
+tests hand both packages the draws that JAX makes.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -87,8 +93,12 @@ def affine_warp_shear(canvas: torch.Tensor, m_out_to_in: torch.Tensor,
 
     1. x-shear of the input: a per-(image, row) fractional shift (row_shift),
     2. separable scale+translate: two per-sample resampling products over
-       tent-weight matrices, in strict fp32 (TF32 off, as the JAX package's
-       ``Precision.HIGHEST``),
+       tent-weight matrices, in strict fp32 (TF32 off) for eval and train
+       alike.  The JAX package runs them at ``Precision.HIGHEST`` for eval
+       and ``Precision.DEFAULT`` (one reduced-precision pass) for train;
+       here the train products stay strict fp32 too, which costs well under
+       a millisecond of a train step and keeps the card's numbers those of
+       the CPU tests,
     3. y-shear of the transposed intermediate (row_shift again).
 
     The shift passes run on channel-interleaved rows (a one-pixel shift is C
@@ -139,10 +149,58 @@ def affine_warp_shear(canvas: torch.Tensor, m_out_to_in: torch.Tensor,
     return outt.transpose(1, 2)     # (B, x, y, C) -> (B, y, x, C)
 
 
+def sample_train_draws(batch: int, cfg: DataConfig,
+                       generator: torch.Generator) -> dict:
+    """The train augmentation's draws, on ``generator``'s device.
+
+    As the JAX package's ``preprocess_batch`` draws them: ``rot`` (B,)
+    radians from U(-max_rotation_deg, max_rotation_deg), zeroed with
+    probability ``1 - rotation_prob``; ``scale`` (B,) from U(*scale_range);
+    ``flip`` (B,) bool with probability ``flip_prob``; ``jitter`` (B, 1, 1, 3)
+    per-channel scales from U(1 - color_jitter, 1 + color_jitter), or
+    ``None`` when ``color_jitter`` is 0.
+    """
+    dev = generator.device
+
+    def uniform(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                           device=dev)
+
+    rot = uniform(batch, lo=-cfg.max_rotation_deg,
+                  hi=cfg.max_rotation_deg) * (math.pi / 180.0)
+    if cfg.rotation_prob < 1.0:
+        rot = torch.where(uniform(batch) < cfg.rotation_prob, rot, 0.0)
+    scale = uniform(batch, lo=cfg.scale_range[0], hi=cfg.scale_range[1])
+    flip = uniform(batch) < cfg.flip_prob
+    jitter = None
+    if cfg.color_jitter > 0:
+        jitter = uniform(batch, 1, 1, 3, lo=1.0 - cfg.color_jitter,
+                         hi=1.0 + cfg.color_jitter)
+    return {"rot": rot, "scale": scale, "flip": flip, "jitter": jitter}
+
+
+def _max_shear(cfg: DataConfig, train: bool) -> float | None:
+    """Bound on |tan(rotation)| for the shear warp (0 when no rotation can
+    occur: eval, rotation off), or ``None`` for the gather warp."""
+    if cfg.warp_method != "shear":
+        return None
+    if train and cfg.max_rotation_deg > 60.0:
+        # The shear decomposition divides by A11 ~ cos(rot): its extents
+        # balloon toward 90 deg.  The JAX package falls back the same way.
+        warnings.warn(
+            f"warp_method='shear' requires max_rotation_deg <= 60 "
+            f"(got {cfg.max_rotation_deg}); falling back to 'gather'")
+        return None
+    rotates = train and cfg.max_rotation_deg > 0 and cfg.rotation_prob > 0
+    return (math.tan(math.radians(cfg.max_rotation_deg)) * 1.01
+            if rotates else 0.0)
+
+
 def preprocess_batch(canvas, coords_px, mask, head_len_px, canvas_from_orig,
                      cfg: DataConfig, out_size: int, train: bool = False,
-                     canvas_margin=None, eval_scale: float = 1.0) -> dict:
-    """The eval preprocessing graph; all inputs are tensors on one device.
+                     canvas_margin=None, eval_scale: float = 1.0,
+                     draws: dict | None = None) -> dict:
+    """The preprocessing graph; all inputs are tensors on one device.
 
     Args:
         canvas: (B, C, C, 3) float32 in [0, 1] or uint8 person canvases.
@@ -150,19 +208,21 @@ def preprocess_batch(canvas, coords_px, mask, head_len_px, canvas_from_orig,
         mask: (B, J) visibility.
         head_len_px: (B,) PCKh head length in original-image pixels.
         canvas_from_orig: (B, 3, 3) affine original px -> canvas px.
-        cfg: data config (``warp_method``, ``mean``, ``std``).
+        cfg: data config (augmentation ranges, ``warp_method``, ``mean``,
+            ``std``).
         out_size: model input size.
-        train: must be False (the train path is not ported yet).
+        train: augment with ``draws`` (required then, see
+            :func:`sample_train_draws`) instead of the deterministic center
+            crop.
         canvas_margin: optional (B,) person-box margin of each canvas.
-        eval_scale: deterministic crop scale (larger zooms in).
+        eval_scale: deterministic crop scale of the eval path (larger zooms
+            in).
+        draws: the train path's ``rot``, ``scale``, ``flip`` and ``jitter``.
 
     Returns dict with normalized ``images`` (B, S, S, 3), ``coords``
     (B, J, 2) in (-1, 1), ``mask``, ``head_length`` and ``crop_from_orig``
     (B, 3, 3) mapping original px -> crop px.
     """
-    if train:
-        raise NotImplementedError(
-            "train-time augmentation is not ported yet: ROADMAP Queue 1")
     b, c_size = canvas.shape[:2]
     dev = canvas.device
     if canvas.dtype == torch.uint8:
@@ -170,9 +230,16 @@ def preprocess_batch(canvas, coords_px, mask, head_len_px, canvas_from_orig,
     else:
         canvas = canvas.to(torch.float32)
 
-    rot = torch.zeros((b,), device=dev)
-    scale = torch.full((b,), float(eval_scale), device=dev)
-    flip = torch.zeros((b,), dtype=torch.bool, device=dev)
+    if train:
+        if draws is None:
+            raise ValueError("train=True needs the augmentation draws "
+                             "(see sample_train_draws)")
+        rot, scale, flip = (draws[k].to(dev) for k in ("rot", "scale", "flip"))
+        rot, scale, flip = rot.float(), scale.float(), flip.bool()
+    else:
+        rot = torch.zeros((b,), device=dev)
+        scale = torch.full((b,), float(eval_scale), device=dev)
+        flip = torch.zeros((b,), dtype=torch.bool, device=dev)
     if canvas_margin is None:
         margin = torch.ones((b,), device=dev)
     else:
@@ -183,24 +250,33 @@ def preprocess_batch(canvas, coords_px, mask, head_len_px, canvas_from_orig,
         rot_rad=rot, scale_aug=scale, flip=flip)
     m_out_to_in = T.invert(m_crop_from_canvas)
 
-    if cfg.warp_method == "shear":
-        # No rotation at eval: zero shear extents, integer-zero shifts.
-        warped = affine_warp_shear(canvas, m_out_to_in, out_size, 0.0)
-    else:
+    max_shear = _max_shear(cfg, train)
+    if max_shear is None:
         warped = affine_warp_bilinear(canvas, m_out_to_in, out_size)
+    else:
+        warped = affine_warp_shear(canvas, m_out_to_in, out_size, max_shear)
+
+    if train and draws.get("jitter") is not None:
+        warped = (warped * draws["jitter"].to(dev).float()).clamp(0.0, 1.0)
 
     mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
     std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
     images = (warped - mean) / std
 
-    # No flip at eval, so no L/R joint swap.
+    # Joint coordinates through the same affine, + L/R swap under flip.
     coords_crop = T.transform_coords(m_crop_from_canvas, coords_px.to(torch.float32))
+    mask = mask.to(torch.float32)
+    if train:
+        perm = T.flip_permutation(coords_crop.shape[1], device=dev)
+        coords_crop = torch.where(flip[:, None, None], coords_crop[:, perm],
+                                  coords_crop)
+        mask = torch.where(flip[:, None], mask[:, perm], mask)
     coords_norm = (2.0 * coords_crop + 1.0) / out_size - 1.0
     crop_from_orig = T.compose(m_crop_from_canvas, canvas_from_orig.to(torch.float32))
     return {
         "images": images,
         "coords": coords_norm,
-        "mask": mask.to(torch.float32),
+        "mask": mask,
         "head_length": head_len_px,
         "crop_from_orig": crop_from_orig,
     }

@@ -36,6 +36,9 @@ class PoseNet(nn.Module):
         if cfg.output_strat != "dsnt":
             raise NotImplementedError(
                 f"output_strat={cfg.output_strat!r} is not ported yet")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat=True is not ported yet (ROADMAP Queue 1 item 3)")
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.backbone = HourglassNet(
             num_stacks=int(cfg.base[2:]), num_joints=cfg.num_joints,
@@ -47,7 +50,12 @@ class PoseNet(nn.Module):
 
 @dataclass(frozen=True)
 class PoseModel:
-    """The module (in eval mode, on ``device``) + head functions for one config."""
+    """The module (on ``device``) + head functions for one config.
+
+    :meth:`forward` takes flax's ``train`` switch: it puts the module in
+    train mode (batch statistics, running statistics updated) or eval mode
+    (running statistics) before running it.
+    """
 
     net: PoseNet
     cfg: ModelConfig
@@ -58,7 +66,9 @@ class PoseModel:
         """Side of the square model input (the JAX ``image_specs.size``)."""
         return self.cfg.resolved_input_size
 
-    def forward(self, images):
+    def forward(self, images, train: bool = False):
+        if self.net.training != train:
+            self.net.train(train)
         return self.net(images)
 
     def loss(self, heatmaps, target_coords, mask):

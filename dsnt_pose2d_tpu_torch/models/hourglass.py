@@ -4,9 +4,11 @@ Port of ``dsnt_pose2d_tpu/models/hourglass.py``: the same topology and the
 same submodule names as the flax modules (``stem_conv``, ``hg0.up1_d4``,
 ``post_res0``, ...), so flax variables map onto the state dict one to one
 (:mod:`.from_jax`).  Inputs are NHWC like the JAX package's; the convs run
-NCHW inside.  With ``dtype=torch.bfloat16`` the convs run under bf16
-autocast while parameters and BN statistics stay fp32, as flax does.
-BatchNorm is eval-mode only in this forward-only port (eps 1e-5).
+NCHW inside.  With ``dtype=torch.bfloat16`` (or fp16) the convs run under
+autocast while parameters and BN statistics stay fp32, as flax does; any
+other dtype runs as it is (``HourglassNet(dtype=torch.float64).double()``
+is the fp64 model of the parity tests).  :class:`BatchNorm` follows the
+module's ``training`` flag, as flax's ``train`` argument.
 """
 
 from __future__ import annotations
@@ -18,10 +20,46 @@ import torch.nn.functional as F
 from torch import nn
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9     # flax's convention: the weight of the old statistic
+_AUTOCAST_DTYPES = (torch.bfloat16, torch.float16)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=_BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+
+    Eval mode normalizes with the running statistics (stock
+    ``BatchNorm2d``).  Train mode reproduces flax's ``_compute_stats`` and
+    ``_normalize``: batch statistics in at least fp32 whatever the input
+    dtype, the fast variance ``E[x^2] - E[x]^2`` clamped at 0,
+    ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in that precision,
+    cast back to the input's dtype; the running statistics move by
+    ``r <- 0.9 r + 0.1 stat`` with the BIASED batch variance, where stock
+    ``BatchNorm2d`` takes the unbiased one.  ``num_batches_tracked`` is not
+    advanced (flax has no such counter).
+    """
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=_BN_EPS, momentum=1.0 - _BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = _BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
+        return y.to(x.dtype)
+
+
+def _bn(ch: int) -> BatchNorm:
+    return BatchNorm(ch)
 
 
 class Bottleneck(nn.Module):
@@ -79,8 +117,9 @@ class HourglassNet(nn.Module):
     """Stacked hourglass producing per-stack raw score maps.
 
     Input ``(B, S_in, S_in, 3)`` NHWC normalized images; output raw heatmaps
-    ``(num_stacks, B, J, S_in / 4, S_in / 4)`` in fp32 whatever the compute
-    dtype.
+    ``(num_stacks, B, J, S_in / 4, S_in / 4)`` in
+    ``promote_types(dtype, float32)``, as flax: fp32 for a bf16 backbone,
+    fp64 for an fp64 one.
     """
 
     def __init__(self, num_stacks: int = 8, num_joints: int = 16,
@@ -110,7 +149,7 @@ class HourglassNet(nn.Module):
                                 nn.Conv2d(num_joints, features, 1))
 
     def _autocast(self, x):
-        if self.dtype == torch.float32:
+        if self.dtype not in _AUTOCAST_DTYPES:
             return contextlib.nullcontext()
         return torch.autocast(x.device.type, dtype=self.dtype)
 
@@ -132,4 +171,5 @@ class HourglassNet(nn.Module):
                 if i < self.num_stacks - 1:
                     x = (x + getattr(self, f"fc_back{i}")(y)
                          + getattr(self, f"score_back{i}")(score))
-        return torch.stack(scores, dim=0).to(torch.float32)
+        out_dtype = torch.promote_types(self.dtype, torch.float32)
+        return torch.stack(scores, dim=0).to(out_dtype)

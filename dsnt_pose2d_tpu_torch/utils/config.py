@@ -67,7 +67,7 @@ class ModelConfig:
     # Backbone compute dtype; params stay fp32, head math always fp32.
     dtype: str = "bfloat16"
     # Rematerialize each hourglass stack / ViT block on the backward pass
-    # (training only; not read by the port's forward-only path yet).
+    # (training only; the port refuses True: not ported yet).
     remat: bool = False
     # Architecture-scale knobs (reference values by default; shrink for CI).
     hg_features: int = 256

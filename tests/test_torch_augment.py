@@ -1,11 +1,14 @@
-"""The port's eval preprocessing against the JAX ``preprocess_batch``.
+"""The port's preprocessing against the JAX ``preprocess_batch``.
 
 Same synthetic canvases (the fixture's numpy arrays), same config; the JAX
 side runs its row_shift Pallas kernel in interpret mode.  Source positions
 are fp32 products of O(100) px values and differ by an ulp between the two
 frameworks, which moves a warped [0, 1] pixel by up to ~3e-6; the mean/std
 normalization divides by std >= 0.224, so normalized images are held at
-3e-5.  Coordinates agree to 1e-5, the affines to 1e-4 px.
+3e-5.  Coordinates agree to 1e-5, the affines to 1e-4 px.  The train path
+gets the draws that JAX makes from its key (``tests/port_helpers.py``) and is
+held to the same bars; its resampling products run at ``Precision.DEFAULT``
+on the JAX side, which on the CPU is full fp32, as the port's.
 """
 
 import jax
@@ -22,6 +25,7 @@ from dsnt_pose2d_tpu_torch.data import augment as A
 from dsnt_pose2d_tpu_torch.data import transforms as T
 from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
 from dsnt_pose2d_tpu_torch.utils.config import DataConfig
+from port_helpers import jax_train_draws
 
 BATCH, CANVAS, SIZE = 3, 96, 64
 
@@ -114,8 +118,61 @@ def test_transforms_match_jax():
                                   np.asarray(JT.flip_permutation(16)))
 
 
-def test_train_path_not_ported(batch):
-    args = [torch.from_numpy(batch[k]) for k in
+def _args(batch):
+    return [torch.from_numpy(batch[k]) for k in
             ("canvases", "coords_px", "mask", "head_length", "canvas_from_orig")]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        A.preprocess_batch(*args, DataConfig(), SIZE, train=True)
+
+
+def test_train_path_not_ported(batch):
+    # The train path takes its draws as tensors: without them it refuses;
+    # with draws from a seeded generator it is a pure function of the seed.
+    with pytest.raises(ValueError, match="draws"):
+        A.preprocess_batch(*_args(batch), DataConfig(), SIZE, train=True)
+    runs = []
+    for _ in range(2):
+        draws = A.sample_train_draws(BATCH, DataConfig(),
+                                     torch.Generator().manual_seed(7))
+        runs.append(A.preprocess_batch(*_args(batch), DataConfig(), SIZE,
+                                       train=True, draws=draws))
+    for k in ("images", "coords", "mask", "crop_from_orig"):
+        assert torch.equal(runs[0][k], runs[1][k]), k
+    assert runs[0]["images"].shape == (BATCH, SIZE, SIZE, 3)
+    assert torch.isfinite(runs[0]["images"]).all()
+
+
+def _run_train_both(batch, cfg_kw, key):
+    jcfg, tcfg = JDataConfig(**cfg_kw), DataConfig(**cfg_kw)
+    draws = jax_train_draws(key, BATCH, jcfg)
+    args = [batch[k] for k in ("canvases", "coords_px", "mask", "head_length",
+                               "canvas_from_orig")]
+    margin = batch["canvas_margin"]
+    exp = j_preprocess(key, *map(jnp.asarray, args), jcfg, SIZE, True,
+                       canvas_margin=jnp.asarray(margin))
+    got = A.preprocess_batch(
+        *map(torch.from_numpy, args), tcfg, SIZE, train=True,
+        canvas_margin=torch.from_numpy(margin),
+        draws={k: None if v is None else torch.from_numpy(v)
+               for k, v in draws.items()})
+    return got, exp, draws
+
+
+@pytest.mark.parametrize("warp_method", ["shear", "gather"])
+def test_train_preprocess_matches_jax(batch, warp_method):
+    # Rotation, scale, flip and color jitter all on (the config's defaults).
+    got, exp, draws = _run_train_both(batch, {"warp_method": warp_method},
+                                      jax.random.PRNGKey(2))
+    assert 0 < draws["flip"].sum() < BATCH and np.all(draws["rot"] != 0)
+    for k, atol in (("images", 3e-5), ("coords", 1e-5), ("mask", 0),
+                    ("head_length", 0), ("crop_from_orig", 1e-4)):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(exp[k]),
+                                   atol=atol, rtol=0, err_msg=k)
+
+
+def test_train_preprocess_wide_rotation_falls_back_to_gather(batch):
+    # Above 60 degrees the shear warp degenerates: both packages warn and
+    # take the gather warp.
+    kw = {"warp_method": "shear", "max_rotation_deg": 75.0}
+    with pytest.warns(UserWarning, match="falling back to 'gather'"):
+        got, exp, _ = _run_train_both(batch, kw, jax.random.PRNGKey(3))
+    np.testing.assert_allclose(got["images"].numpy(), np.asarray(exp["images"]),
+                               atol=3e-5, rtol=0)

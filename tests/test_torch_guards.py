@@ -15,7 +15,8 @@ import dsnt_pose2d_tpu_torch
 from dsnt_pose2d_tpu.utils import config as jconfig
 from dsnt_pose2d_tpu_torch.models.factory import (build_mpii_pose_model,
                                                   build_pose_model)
-from dsnt_pose2d_tpu_torch.train.loop import make_eval_fn, make_infer_fn
+from dsnt_pose2d_tpu_torch.train.loop import (make_eval_fn, make_infer_fn,
+                                             make_train_fn)
 from dsnt_pose2d_tpu_torch.utils import config as tconfig
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -77,7 +78,7 @@ def test_steps_default_to_cuda_and_raise_without_it(no_cuda):
     cfg = tconfig.Config(model=tconfig.ModelConfig(base="hg1", hg_features=16,
                                                    input_size=32))
     model = build_pose_model(cfg.model, device="cpu")
-    for make in (make_infer_fn, make_eval_fn):
+    for make in (make_infer_fn, make_eval_fn, make_train_fn):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(model, cfg)
         assert callable(make(model, cfg, device="cpu"))

@@ -8,8 +8,11 @@ a machine with a card it runs on its own:
 
 Tolerances: the DSNT head's coords atol 2e-6, its reg rtol 1e-5 / atol 1e-5
 (the bar of ``tests/test_pallas.py`` for the TPU kernel against its oracle;
-the kernel sums in another order than the plain version); row_shift bitwise
-(both round each product and the sum separately).
+the kernel sums in another order than the plain version); the head's
+backward dh rtol 1e-4 with atol 5e-6 of the largest |dh|, at least 2e-6:
+dh = z (u - <z, u>) keeps a few fp32 ulps of |u|, which reaches ~1e2 where
+KL's log(g + eps) meets a pixel far from the target; row_shift bitwise (both
+round each product and the sum separately).
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 
 from dsnt_pose2d_tpu_torch.ops.cuda import (MAX_HW, PREACT_KINDS, REG_KINDS,
                                             fused_dsnt_head,
+                                            fused_dsnt_head_bwd_reference,
                                             fused_dsnt_head_reference,
                                             launch_counts, reset_launch_counts,
                                             shift_rows, shift_rows_reference)
@@ -79,10 +83,40 @@ def test_head_kernel_counts_launches(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("preact", PREACT_KINDS)
+@pytest.mark.parametrize("reg", REG_KINDS)
+@pytest.mark.parametrize("shape", [(2, 3, 64, 64), (5, 7, 9)])
+def test_head_bwd_kernel_matches_plain(cuda, shape, reg, preact):
+    raw, t = _heads(shape, 37, cuda)
+    g = torch.Generator().manual_seed(3)
+    gc = torch.randn((*shape[:-2], 2), generator=g).to(cuda)
+    gr = torch.randn(shape[:-2], generator=g).to(cuda)
+    kw = dict(sigma_px=1.3, reg=reg, preact=preact, threshold=0.5)
+    x = raw.clone().requires_grad_(True)
+    coords, regv = fused_dsnt_head(x, t, **kw)
+    reset_launch_counts()
+    if regv is None:
+        coords.backward(gc)
+    else:
+        torch.autograd.backward([coords, regv], [gc, gr])
+    assert launch_counts()["dsnt_head_bwd"] == 1
+    exp = fused_dsnt_head_bwd_reference(raw, t, gc,
+                                        None if regv is None else gr, **kw)
+    torch.cuda.synchronize()
+    atol = max(2e-6, 5e-6 * exp.abs().max().item())
+    torch.testing.assert_close(x.grad, exp, atol=atol, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_head_kernel_refuses_grad_and_oversize(cuda):
+    # The backward runs on the card (a zero map: uniform softmax, dh of the
+    # x-coordinate is z (X - <z, X>)), and an oversized map is refused.
     raw = torch.zeros((2, 8, 8), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        fused_dsnt_head(raw, None, reg="none")
+    coords, _ = fused_dsnt_head(raw, None, reg="none")
+    coords[..., 0].sum().backward()
+    xs = (2 * torch.arange(8, device=cuda) + 1) / 8 - 1
+    torch.testing.assert_close(raw.grad, (xs / 64).expand(2, 8, 8),
+                               atol=1e-7, rtol=0)
     side = int(MAX_HW ** 0.5) + 1
     with pytest.raises(ValueError, match="exceeds"):
         fused_dsnt_head(torch.zeros((1, side, side), device=cuda), None)

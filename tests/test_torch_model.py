@@ -5,7 +5,9 @@ fp32: rtol 1e-4 / atol 2e-4, the bar of ``tests/test_export_torch.py`` (two
 frameworks' conv sums in different orders), TF32 off.  bf16: both sides
 round activations to bf16 (8 mantissa bits) at different places, so the
 heatmaps are held at 5% of their largest magnitude, and the port's distance
-from the fp32 forward at twice the JAX package's own bf16 distance.
+from the fp32 forward at twice the JAX package's own bf16 distance.  fp64
+(flax under ``jax.enable_x64``): fp64 heatmaps, as flax promotes, agreeing to
+rtol 1e-10 / atol 1e-10 (sums in different orders, 16 significant digits).
 """
 
 import jax
@@ -24,27 +26,9 @@ from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
 from dsnt_pose2d_tpu_torch.models.from_jax import hourglass_from_jax
 from dsnt_pose2d_tpu_torch.models.hourglass import HourglassNet
 from dsnt_pose2d_tpu_torch.utils.config import ModelConfig
+from port_helpers import perturb
 
 STACKS, FEATS, J, SIZE = 2, 32, 16, 64
-
-
-def perturb(variables, seed=0):
-    """Non-trivial BN statistics/affines and biases, so the mapping of every
-    tensor shows in the output (flax initialises mean 0, var 1, scale 1)."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, x):
-        name = path[-1].key
-        x = np.array(x)
-        if name == "mean":
-            return x + rng.normal(0, 0.1, x.shape).astype(np.float32)
-        if name in ("var", "scale"):
-            return x * rng.uniform(0.6, 1.4, x.shape).astype(np.float32)
-        if name == "bias":
-            return x + rng.normal(0, 0.05, x.shape).astype(np.float32)
-        return x
-
-    return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +84,28 @@ def test_hourglass_bf16_matches_flax(images):
     assert np.abs(hm_t - hm_32).max() <= 2 * np.abs(hm_j - hm_32).max()
 
 
+def test_hourglass_fp64_matches_flax(images):
+    x64 = images.astype(np.float64)
+    with jax.enable_x64(True):
+        flax_model = JHourglassNet(num_stacks=STACKS, num_joints=J,
+                                   features=FEATS, dtype=jnp.float64)
+        variables = jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float64),
+            perturb(flax_model.init(jax.random.PRNGKey(3), jnp.asarray(x64),
+                                    train=False)))
+        hm_j = np.asarray(flax_model.apply(variables, jnp.asarray(x64),
+                                           train=False))
+    net = HourglassNet(num_stacks=STACKS, num_joints=J, features=FEATS,
+                       dtype=torch.float64).double()
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in
+                         hourglass_from_jax(variables, STACKS).items()},
+                        strict=True)
+    with torch.inference_mode():
+        hm_t = net.eval()(torch.from_numpy(x64))
+    assert hm_j.dtype == np.float64 and hm_t.dtype == torch.float64
+    np.testing.assert_allclose(hm_t.numpy(), hm_j, rtol=1e-10, atol=1e-10)
+
+
 def test_posenet_loads_flax_posenet_variables(images):
     kw = dict(base="hg2", hg_features=FEATS, input_size=SIZE, dtype="float32",
               reg="js")
@@ -132,3 +138,9 @@ def test_seeded_init_is_deterministic():
 def test_other_bases_not_ported(base):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_pose_model(ModelConfig(base=base), device="cpu")
+
+
+def test_remat_not_ported():
+    with pytest.raises(NotImplementedError, match="remat"):
+        build_pose_model(ModelConfig(base="hg1", hg_features=FEATS,
+                                     input_size=SIZE, remat=True), device="cpu")
