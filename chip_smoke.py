@@ -7,7 +7,11 @@ steps and then the train step of the flagship config
 (``configs/hg8_dsnt_js_train.json``: 8-stack hourglass, 256 features, 256-px
 input, bf16 backbone with fp32 params, fused DSNT head with the JS
 regularizer, shear warp with rotation, RMSProp) at batch 32 on 384-px
-synthetic canvases, and times the kernels and the steps.
+synthetic canvases, and times the kernels and the steps.  Then it drives
+the port's bench entry points at small counts (``bench.kernel``'s rooflines
+with the calibration kernels, and ``bench.step``'s device step and
+streaming and resident epochs at batch 32), holds the calibration kernels
+against their plain versions and times them beside PyTorch's own calls.
 
 Run from the root of a checkout, with no arguments:
 
@@ -23,11 +27,10 @@ beside this script, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
-import functools
+import gc
 import json
 import math
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -41,9 +44,6 @@ CONFIG = ROOT / "configs" / "hg8_dsnt_js_train.json"
 BATCH = 32
 CANVAS = 384
 STEPS = 3                  # eval, infer and train steps in the counted runs
-REPS = 25                  # timed windows per measurement (median reported)
-WARMUP = 3
-BACK_TO_BACK = 20          # kernel calls queued in one window: host time hidden
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 HEAD_TOL = {"coords_atol": 2e-6, "reg_rtol": 1e-5, "reg_atol": 1e-5}
@@ -77,6 +77,15 @@ HEAD_BWD_TOL = {"atol": 2e-6, "atol_of_max": 5e-6, "rtol": 1e-4}
 # backward, whose weight-gradient reductions use atomics in no fixed order:
 # two runs of the same step differ there, so it is held at 1e-2.
 TRAIN_TOL = {"loss_rtol": 1e-5, "dheat_rel_to_max": 1e-4, "grad_norm_rtol": 1e-2}
+# The calibration kernels against their plain versions: copy is one fp32 add
+# (bitwise); exp is full-precision expf against torch.exp (a few ulp at
+# most); the softmax sums 4096 terms in another order than torch.softmax.
+CALIB_TOL = {"copy": None, "exp": {"rtol": 1e-6, "atol": 0.0},
+             "smax": {"rtol": 2e-6, "atol": 1e-9}}
+CALIB_SHAPES = ((8192, 4096), (130, 4096), (37, 1028))
+# The bench phase: bench.step at the smoke's batch and small counts.
+BENCH_KW = {"iters": 5, "repeats": 3}
+E2E_KW = {"repeats": 2, "epoch_steps": 8}
 
 
 def emit(phase: str, **fields):
@@ -88,29 +97,6 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, spread: bool = False, per_window: int = 1):
-    """Median over REPS CUDA-event windows, after a warm-up, of one window's
-    time over ``per_window``, the number of ``fn()`` calls queued in it.
-    With one call per window the time includes the host's work before the
-    launch; with many, the card runs them back to back and that work is
-    hidden.  With ``spread``, ``(median, min, max)``."""
-    for _ in range(WARMUP):
-        fn()
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_window):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / per_window)
-    med = statistics.median(times)
-    return (med, min(times), max(times)) if spread else med
 
 
 def on_device(event) -> bool:
@@ -126,8 +112,9 @@ PROFILE_ATTEMPTS = 4
 # profiled, later profiles in the same process lacked device activities: a
 # few per profile at first, and on one machine nearly all of them (2 of the
 # 10 expected, then 0 of 20).  The cause is not known.  Kernel times
-# (``device_ms``) are therefore taken with CUDA events and no profiler; the
-# profiler only breaks a step down (``profile_step``).  A step's profile is
+# (``bench.timing.device_ms``) are therefore taken with CUDA events and no
+# profiler; the profiler only breaks a step down (``profile_step``).  A
+# step's profile is
 # used only when every ported kernel appears in it as many times as the
 # launch counters say the step launched it; device activities that start
 # before the profile's first host event (a previous profile's) are not
@@ -142,85 +129,6 @@ def _device_events(prof) -> list:
     first = min((e.time_range.start for e in events if not on_device(e)),
                 default=-math.inf)
     return [e for e in events if on_device(e) and e.time_range.start >= first]
-
-
-SPIN_RETAKES = 8
-
-
-@functools.cache
-def spin_cycles_per_ms() -> float:
-    """Clock cycles that ``torch.cuda._sleep`` spins per ms on this card."""
-    cycles = 20_000_000
-    torch.cuda._sleep(cycles)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(cycles)
-    end.record()
-    torch.cuda.synchronize()
-    return cycles / start.elapsed_time(end)
-
-
-def device_ms(fn, calls: int = BACK_TO_BACK) -> tuple[float, dict]:
-    """Device time per ``fn()`` call with the host's time left out: the
-    median over REPS windows, each ``calls`` calls queued behind a spin
-    kernel (``torch.cuda._sleep``) that holds the card until the host has
-    queued them all, and timed by CUDA events around the calls, so the card
-    runs them back to back.  A window counts only if the card was still
-    spinning when the host had queued the last call (the start event not
-    yet reached).  Otherwise the spin is doubled, the calls per window are
-    halved (a full launch queue also stalls the host), and the windows are
-    taken again; after SPIN_RETAKES retakes the run fails.  Returns the
-    time and how it was found."""
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    spin_ms = 2e3 * (time.perf_counter() - t0) + 1.0
-    torch.cuda.synchronize()
-    times, retakes = [], 0
-    while len(times) < REPS:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        held = not start.query()
-        torch.cuda.synchronize()
-        if held:
-            times.append(start.elapsed_time(end) / calls)
-            continue
-        retakes += 1
-        if retakes > SPIN_RETAKES:
-            raise RuntimeError(f"the host did not queue {calls} calls within a "
-                               f"{spin_ms:.1f} ms spin of the card after "
-                               f"{SPIN_RETAKES} retakes")
-        spin_ms, calls, times = 2 * spin_ms, max(1, calls // 2), []
-    return statistics.median(times), {"calls_per_window": calls,
-                                      "spin_ms": spin_ms, "retakes": retakes}
-
-
-def kernel_times(fn, plain_fn, library_fn=None) -> dict:
-    """A kernel, its plain version and (if any) the library call, each timed
-    three ways: device time per call (``ms``, the figure reported: no host
-    time in it, see ``device_ms``; ``<key>_spin`` says how it was found),
-    back to back in one CUDA-event window with no spin (host time hidden
-    only where the device outruns the host's launches), and one call per
-    window (host dispatch included)."""
-    out = {}
-    for key, f in (("ms", fn), ("plain_ms", plain_fn), ("library_ms", library_fn)):
-        if f is None:
-            out[key] = None
-            continue
-        out[key], out[f"{key}_spin"] = device_ms(f)
-        out[f"{key}_back_to_back"] = time_ms(f, per_window=BACK_TO_BACK)
-        out[f"{key}_one_call"] = time_ms(f)
-    return out
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -527,7 +435,7 @@ def phase_serve(dev):
         served = [infer_step(batch) for _ in range(STEPS)]
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = {"dsnt_head_fwd": 3 * STEPS, "dsnt_head_bwd": 0,
+    expected = {**dict.fromkeys(launches, 0), "dsnt_head_fwd": 3 * STEPS,
                 "row_shift": 4 * STEPS}
     if launches != expected:
         raise AssertionError(f"main-path launches {launches}, expected {expected}")
@@ -618,6 +526,7 @@ def head_bytes_ops(n, hw, reg):
 
 def phase_head_on_main_path(run):
     """The head kernel on the main path's own heatmaps, checked and timed."""
+    from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
                                                 fused_dsnt_head_reference)
 
@@ -634,8 +543,8 @@ def phase_head_on_main_path(run):
         kw = dict(sigma_px=cfg.hm_sigma, reg=reg, preact=cfg.preact,
                   threshold=cfg.hm_threshold)
         errs.extend(compare_head(x, tt, reg, cfg.preact, cfg.hm_threshold))
-        times = kernel_times(lambda: fused_dsnt_head(x, tt, **kw),
-                             lambda: fused_dsnt_head_reference(x, tt, **kw))
+        times = timing.kernel_times(lambda: fused_dsnt_head(x, tt, **kw),
+                                    lambda: fused_dsnt_head_reference(x, tt, **kw))
         n = x.numel() // (h * w)
         nbytes, nops = head_bytes_ops(n, h * w, reg)
         b_ms, by = bound_ms(nbytes, nops)
@@ -665,6 +574,7 @@ def phase_row_shift_timing(recorded):
     """row_shift timed on the inputs the main path gave it, with per-step
     totals for each path (serve: the two calls of one eval step; train: the
     two of one train step)."""
+    from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
 
     by_path, lib_err = {}, 0.0
@@ -675,7 +585,7 @@ def phase_row_shift_timing(recorded):
             img, grid = row_shift_library(rows, starts, fracs, out, stride)
             lib = lambda: F.grid_sample(img, grid, mode="bilinear",
                                         padding_mode="zeros", align_corners=True)
-            times = kernel_times(
+            times = timing.kernel_times(
                 lambda: shift_rows(rows, starts, fracs, out, stride=stride),
                 lambda: shift_rows_reference(rows, starts, fracs, out,
                                              stride=stride),
@@ -701,13 +611,15 @@ def phase_row_shift_timing(recorded):
 
 
 def phase_times(run, card):
+    from dsnt_pose2d_tpu_torch.bench import timing
+
     batch = run["batch"]
     # Interleaved: the step is host-bound and the host is shared, so two
     # paths are compared only inside one window of time.
-    infer_ms = time_ms(lambda: run["infer_step"](batch), spread=True)
-    eval_ms = time_ms(lambda: run["eval_step"](batch), spread=True)
-    plain_eval_ms = time_ms(lambda: run["plain_eval"](batch), spread=True)
-    eval_ms_2 = time_ms(lambda: run["eval_step"](batch), spread=True)
+    infer_ms = timing.time_ms(lambda: run["infer_step"](batch), spread=True)
+    eval_ms = timing.time_ms(lambda: run["eval_step"](batch), spread=True)
+    plain_eval_ms = timing.time_ms(lambda: run["plain_eval"](batch), spread=True)
+    eval_ms_2 = timing.time_ms(lambda: run["eval_step"](batch), spread=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -782,6 +694,7 @@ def phase_profile(run, card):
 def phase_train(dev, card):
     """The train step: the counted main-path run, the first step against the
     same step on the plain versions, times, peak memory and a profile."""
+    from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
     from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
     from dsnt_pose2d_tpu_torch.ops import cuda as kernels
@@ -818,8 +731,8 @@ def phase_train(dev, card):
             metrics.append(train_step(batch))
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = {"dsnt_head_fwd": STEPS, "dsnt_head_bwd": STEPS,
-                "row_shift": 2 * STEPS}
+    expected = {**dict.fromkeys(launches, 0), "dsnt_head_fwd": STEPS,
+                "dsnt_head_bwd": STEPS, "row_shift": 2 * STEPS}
     if launches != expected:
         raise AssertionError(f"train launches {launches}, expected {expected}")
     losses = [m["loss"].item() for m in metrics]
@@ -873,9 +786,9 @@ def phase_train(dev, card):
         with plain_head(), plain_row_shift():
             return plain_step(batch)
 
-    step_ms = time_ms(lambda: train_step(batch), spread=True)
-    plain_ms = time_ms(plain_train, spread=True)
-    step_ms_2 = time_ms(lambda: train_step(batch), spread=True)
+    step_ms = timing.time_ms(lambda: train_step(batch), spread=True)
+    plain_ms = timing.time_ms(plain_train, spread=True)
+    step_ms_2 = timing.time_ms(lambda: train_step(batch), spread=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -898,6 +811,7 @@ def phase_train(dev, card):
 def phase_head_bwd_on_main_path(train, card):
     """The backward kernel on the train step's own heatmaps and cotangents,
     checked against the step's dL/dheatmaps and its plain version, and timed."""
+    from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.data.augment import (preprocess_batch,
                                                     sample_train_draws)
     from dsnt_pose2d_tpu_torch.ops import euclidean_losses
@@ -933,8 +847,9 @@ def phase_head_bwd_on_main_path(train, card):
     scale = exp.abs().max().item()
     step_err = (got - train["dheat"]).abs().max().item()
     assert step_err <= TRAIN_TOL["dheat_rel_to_max"] * scale, step_err
-    times = kernel_times(lambda: fused_dsnt_head_bwd(heat, t, gc, gr, **kw),
-                         lambda: fused_dsnt_head_bwd_reference(heat, t, gc, gr, **kw))
+    times = timing.kernel_times(
+        lambda: fused_dsnt_head_bwd(heat, t, gc, gr, **kw),
+        lambda: fused_dsnt_head_bwd_reference(heat, t, gc, gr, **kw))
     n = s * b * j
     # raw read once, dh written once; targets and both cotangents read once.
     nbytes = 8 * n * h * w + 4 * 5 * n
@@ -944,6 +859,126 @@ def phase_head_bwd_on_main_path(train, card):
             "rows": n, "hw": h * w, "bytes": nbytes,
             "GB_per_s": nbytes / times["ms"] / 1e6, "dh_max_abs": scale,
             "vs_train_step_dheat_max_diff": step_err}
+
+
+def calib_fns(kind):
+    """A calibration kernel's wrapper and its plain version."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import calib
+
+    return (getattr(calib, f"calib_{kind}"),
+            getattr(calib, f"calib_{kind}_reference"))
+
+
+def assert_calib_close(kind, got, exp):
+    tol = CALIB_TOL[kind]
+    if tol is None:
+        if not torch.equal(got, exp):
+            raise AssertionError(f"calib_{kind} differs from its plain version: "
+                                 f"max {(got - exp).abs().max().item()}")
+    else:
+        torch.testing.assert_close(got, exp, **tol)
+
+
+def phase_calib_vs_plain(dev):
+    """Each calibration kernel against its plain version on random rows and
+    a nonzero scalar, at the bench's shape, a row count that is no multiple
+    of the TPU's 128-row blocks, and a ragged width (257 float4 a row)."""
+    errs = {kind: 0.0 for kind in CALIB_TOL}
+    for i, (rows, cols) in enumerate(CALIB_SHAPES):
+        g = torch.Generator().manual_seed(i)
+        x = (torch.randn((rows, cols), generator=g) * 3.0).to(dev)
+        s = torch.full((1,), 0.37, device=dev)
+        for kind in CALIB_TOL:
+            kernel, plain = calib_fns(kind)
+            got, exp = kernel(x, s), plain(x, s)
+            torch.cuda.synchronize()
+            assert_calib_close(kind, got, exp)
+            errs[kind] = max(errs[kind], (got - exp).abs().max().item())
+    emit("calib_vs_plain", shapes=[list(sh) for sh in CALIB_SHAPES],
+         tolerance=CALIB_TOL, max_abs_err=errs)
+    return errs
+
+
+# Operations per element: the add; the add and expf; the add, max, subtract,
+# expf, sum and division.
+CALIB_OPS_PER_ELEMENT = {"copy": 1, "exp": 2, "smax": 6}
+
+
+def phase_calibration(card):
+    """The calibration kernels timed at the bench's (8192, 4096), beside
+    their plain versions and one PyTorch call each.  s is 0 here, so
+    ``torch.add(x, s)``, ``torch.exp(x)`` and ``torch.softmax(x, dim=1)``
+    compute the kernels' functions on these inputs."""
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.bench.kernel import COLS
+
+    rows = CALIB_SHAPES[0][0]
+    x = torch.randn((rows, COLS), generator=torch.Generator().manual_seed(0))
+    x = x.cuda()
+    s = torch.zeros((1,), device=x.device)
+    library = {"copy": lambda: torch.add(x, s), "exp": lambda: torch.exp(x),
+               "smax": lambda: torch.softmax(x, dim=1)}
+    nbytes = 2 * rows * COLS * 4 + 4      # x read, o written, s read
+    out = {}
+    for kind, lib in library.items():
+        kernel, plain = calib_fns(kind)
+        assert_calib_close(kind, kernel(x, s), lib())
+        times = timing.kernel_times(lambda: kernel(x, s), lambda: plain(x, s), lib)
+        b_ms, by = bound_ms(nbytes, CALIB_OPS_PER_ELEMENT[kind] * rows * COLS)
+        out[kind] = {**times, "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+                     "GB_per_s": nbytes / times["ms"] / 1e6,
+                     "library_GB_per_s": nbytes / times["library_ms"] / 1e6}
+    ceiling = out["copy"]["GB_per_s"]
+    emit("calibration", card=card, shape=[rows, COLS], per_kernel=out,
+         ceiling_GB_per_s=ceiling,
+         library_calls=["torch.add(x, s)", "torch.exp(x)",
+                        "torch.softmax(x, dim=1)"])
+    return out, ceiling
+
+
+def phase_kernel_bench(card):
+    """``bench.kernel``'s records at its defaults (8192 rows: hg8 at batch
+    64), counted: the first run of the bench path."""
+    from dsnt_pose2d_tpu_torch.bench import kernel as bench_kernel
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    records = bench_kernel.run("cuda")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for rec in records[2:]:
+        assert rec["fwd_frac_of_ceiling"] <= 1.05, rec
+    emit("kernel_bench", card=card, records=records, launches=launches)
+    return launches
+
+
+def phase_bench(card):
+    """``bench.step``'s device step, streaming epochs (k=1) and resident
+    epochs (k=4) of the flagship at batch 32 and small counts, counted: the
+    second run of the bench path."""
+    from dsnt_pose2d_tpu_torch.bench import step as bench_step
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    dev_step = bench_step.measure_step(batch=BATCH, device="cuda", **BENCH_KW)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e = {}
+    for key, resident, k in (("e2e", False, 1), ("e2e_resident", True, 4)):
+        r = bench_step.measure_e2e(batch=BATCH, resident=resident,
+                                   steps_per_dispatch=k, device="cuda", **E2E_KW)
+        r["vs_device_step_pct"] = 100.0 * r["median"] / dev_step["median"]
+        e2e[key] = r
+        gc.collect()              # the previous run's model and optimizer
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    assert dev_step["median"] > 0 and 0 < dev_step["implied_mfu"] <= 1, dev_step
+    assert dev_step["tflops_per_step"] > 0, dev_step
+    emit("bench", card=card, batch=BATCH, value=dev_step["median"],
+         device_step=dev_step, **e2e, launches=launches,
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return launches
 
 
 def main():
@@ -962,6 +997,7 @@ def main():
     del run
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
+    train_launches = train["launches"]
     recorded["train"] = train["row_shift_calls"]
     bwd = phase_head_bwd_on_main_path(train, card)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
@@ -969,23 +1005,39 @@ def main():
     shift_err = phase_row_shift_vs_plain(recorded)
     shift, shift_lib_err = phase_row_shift_timing(recorded)
     emit("row_shift_times", card=card, by_path=shift, library_err=shift_lib_err)
+    del train, recorded
+    torch.cuda.empty_cache()
+    calib_errs = phase_calib_vs_plain(dev)
+    calib_times, ceiling = phase_calibration(card)
+    bench_launches = phase_kernel_bench(card)
+    for name, n in phase_bench(card).items():
+        bench_launches[name] += n
+    paths = {"serve": serve_launches, "train": train_launches,
+             "bench": bench_launches}
 
     def launches(name):
-        by_path = {"serve": serve_launches[name], "train": train["launches"][name]}
+        by_path = {p: counts[name] for p, counts in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
+    def frac_of_ceiling(nbytes, ms):
+        return nbytes / ms / 1e6 / ceiling
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    head_bytes = sum(c["bytes"] for c in head["per_call"].values())
+    shift_bytes = sum(c["bytes"] for c in shift["serve"]["per_call"].values())
     entries = [
         {"name": "dsnt_head_fwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:184",
          **launches("dsnt_head_fwd"), "max_abs_err": head["max_abs_err"],
-         **{k: head[k] for k in keys}},
+         **{k: head[k] for k in keys},
+         "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"])},
         {"name": "dsnt_head_bwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
          **launches("dsnt_head_bwd"), "max_abs_err": bwd["max_abs_err"],
-         **{k: bwd[k] for k in keys}},
+         **{k: bwd[k] for k in keys},
+         "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"])},
         # ms and the other times: the two calls of one serve step; those of
         # one train step are under by_path.
         {"name": "row_shift", "route": "cuda",
@@ -993,12 +1045,24 @@ def main():
          "replaces": "dsnt_pose2d_tpu/ops/pallas/row_shift.py:57",
          **launches("row_shift"), "max_abs_err": shift_err,
          **{k: shift["serve"][k] for k in keys},
-         "by_path": {p: {k: v[k] for k in keys} for p, v in shift.items()}},
+         "by_path": {p: {k: v[k] for k in keys} for p, v in shift.items()},
+         "frac_of_ceiling": frac_of_ceiling(shift_bytes, shift["serve"]["ms"])},
     ]
+    for kind, line in (("copy", 247), ("exp", 250), ("smax", 253)):
+        t = calib_times[kind]
+        entries.append(
+            {"name": f"calib_{kind}", "route": "cuda",
+             "source": "dsnt_pose2d_tpu_torch/ops/cuda/calib.cu",
+             "replaces": f"bench_kernel.py:{line}",
+             **launches(f"calib_{kind}"), "max_abs_err": calib_errs[kind],
+             **{k: t[k] for k in keys},
+             "frac_of_ceiling": frac_of_ceiling(t["bytes"], t["ms"])})
     for e in entries:
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             assert math.isfinite(e[k]), (e["name"], k)
-        assert e["launches_by_path"]["train"] > 0, e["name"]
+        assert e["launches"] > 0, e["name"]
+    for e in entries[3:]:
+        assert math.isfinite(e["library_ms"]), e["name"]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ class PoseNet(nn.Module):
                 f"output_strat={cfg.output_strat!r} is not ported yet")
         if cfg.remat:
             raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP Queue 1 item 3)")
+                "remat=True is not ported yet (ROADMAP Queue 1 item 4)")
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.backbone = HourglassNet(
             num_stacks=int(cfg.base[2:]), num_joints=cfg.num_joints,

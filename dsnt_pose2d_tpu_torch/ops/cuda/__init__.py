@@ -7,13 +7,16 @@ dsnt_head_fwd  fused_dsnt_head (forward)        dsnt_head.cu  ops/pallas/dsnt_he
 dsnt_head_bwd  fused_dsnt_head (its backward),  dsnt_head.cu  ops/pallas/dsnt_head.py::_bwd_kernel
                fused_dsnt_head_bwd
 row_shift      shift_rows                       row_shift.cu  ops/pallas/row_shift.py::_kernel_vec/_legacy
+calib_copy     calib_copy                       calib.cu      bench_kernel.py::calibrate::_copy_k
+calib_exp      calib_exp                        calib.cu      bench_kernel.py::calibrate::_exp_k
+calib_smax     calib_smax                       calib.cu      bench_kernel.py::calibrate::_smax_k
 =============  ===============================  ============  ============================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version for a CPU tensor, and counts its kernel launches.
 """
 
-from . import dsnt_head, row_shift
+from . import calib, dsnt_head, row_shift
 from .dsnt_head import (MAX_HW, PREACT_KINDS, REG_KINDS, fused_dsnt_head,
                         fused_dsnt_head_bwd, fused_dsnt_head_bwd_reference,
                         fused_dsnt_head_reference)
@@ -24,6 +27,9 @@ KERNEL_MODULES = {
     "dsnt_head_fwd": (dsnt_head, "fwd_launches"),
     "dsnt_head_bwd": (dsnt_head, "bwd_launches"),
     "row_shift": (row_shift, "launches"),
+    "calib_copy": (calib, "copy_launches"),
+    "calib_exp": (calib, "exp_launches"),
+    "calib_smax": (calib, "smax_launches"),
 }
 
 

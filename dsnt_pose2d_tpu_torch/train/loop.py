@@ -9,16 +9,26 @@ preprocess -> forward -> decode of the last stack -> original-image pixels.
 :func:`make_eval_fn` is the same path plus the loss over all stacks and the
 PCKh counts, returning what the JAX package's ``_build_eval_body`` returns.
 Infer and eval run the module in eval mode under
-:func:`torch.inference_mode`.  Flip and multi-scale evaluation, multi-step
-dispatch and the Trainer are not ported yet.
+:func:`torch.inference_mode`.
+
+:func:`make_multi_step` runs ``k`` train steps per call over a stacked
+super-batch (the JAX package's ``lax.scan``; here a Python loop), and
+:func:`make_resident_step` / :func:`make_resident_multi_step` gather each
+batch on the device from a :class:`..data.resident.ResidentTrainData` first.
+Each takes the train step whose state it advances, so that a multi-step and
+a single step (the ragged tail of an epoch) share one optimizer.  Flip and
+multi-scale evaluation and the Trainer are not ported yet.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
 from ..data.augment import preprocess_batch, sample_train_draws
+from ..data.loader import stage_ahead, to_device
 from ..data.transforms import invert, transform_coords
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..evaluation.pckh import pckh_batch_counts
@@ -123,6 +133,92 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
 
     train_step.state = state
     return train_step
+
+
+def _stack_metrics(metrics: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_multi_step(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
+                    steps_per_epoch: int = 1, train_step=None):
+    """``k`` train steps per call: ``multi(super_batch, draws=None)``.
+
+    Every array of ``super_batch`` has a leading ``k`` axis; step ``i``
+    trains on ``{key: v[i]}`` with ``draws[i]`` (or its own draws from
+    ``(seed, step)`` when ``draws`` is None).  The metrics come back stacked
+    ``(k,)``.  The steps are those of ``train_step`` (a new
+    :func:`make_train_fn` step if None), so the result is that of ``k``
+    calls of it, bit for bit.  ``multi.state`` is its state.
+    """
+    train_step = train_step or make_train_fn(model, cfg, device, steps_per_epoch)
+
+    def multi_step(super_batch: dict, draws: list | None = None) -> dict:
+        k = len(next(iter(super_batch.values())))
+        return _stack_metrics([
+            train_step({key: v[i] for key, v in super_batch.items()},
+                       None if draws is None else draws[i])
+            for i in range(k)])
+
+    multi_step.state = train_step.state
+    return multi_step
+
+
+def _resident_gather(resident: dict, idx: torch.Tensor) -> dict:
+    """The batch at rows ``idx`` of every resident array, on the device."""
+    return {k: v[idx] for k, v in resident.items()}
+
+
+def make_resident_step(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
+                       steps_per_epoch: int = 1, train_step=None):
+    """Train step over a device-resident split: ``step(resident, idx,
+    draws=None)``.  The same step as the streaming one on the same rows;
+    only the batch comes from a gather on the device."""
+    train_step = train_step or make_train_fn(model, cfg, device, steps_per_epoch)
+
+    def step(resident: dict, idx: torch.Tensor, draws: dict | None = None):
+        return train_step(_resident_gather(resident, idx), draws)
+
+    step.state = train_step.state
+    return step
+
+
+def make_resident_multi_step(model: PoseModel, cfg: Config,
+                             device=DEFAULT_DEVICE, steps_per_epoch: int = 1,
+                             train_step=None):
+    """``k`` resident train steps per call: ``multi(resident, idx_k,
+    draws=None)`` with ``idx_k`` of shape ``(k, B)``: the gather gives the
+    ``(k, B, ...)`` super-batch of :func:`make_multi_step`."""
+    multi = make_multi_step(model, cfg, device, steps_per_epoch, train_step)
+
+    def resident_multi(resident: dict, idx_k: torch.Tensor,
+                       draws: list | None = None):
+        return multi(_resident_gather(resident, idx_k), draws)
+
+    resident_multi.state = multi.state
+    return resident_multi
+
+
+def _prefetch_dispatch_groups(batch_iter, k: int, device, depth: int = 1):
+    """Group host batches into ``k``-step super-batches, staged on the
+    device ``depth`` groups ahead of the consumer.
+
+    Yields ``("multi", super_batch)`` for each full group (every array
+    stacked ``(k, B, ...)``) and ``("single", batch)`` for each batch of a
+    ragged tail.  The host-to-device copies are ``non_blocking`` from pinned
+    memory (:func:`..data.loader.to_device`), so they overlap the groups
+    that run before them.
+    """
+    def groups():
+        it = iter(batch_iter)
+        while group := list(itertools.islice(it, k)):
+            if len(group) < k:
+                yield from (("single", b) for b in group)
+                return
+            yield "multi", {key: np.stack([b[key] for b in group])
+                            for key in group[0]}
+
+    return stage_ahead(((kind, to_device(host, device)) for kind, host in groups()),
+                       depth)
 
 
 def make_infer_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):

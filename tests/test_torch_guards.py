@@ -29,9 +29,14 @@ def _modules():
         dsnt_pose2d_tpu_torch.__path__, "dsnt_pose2d_tpu_torch."))
 
 
+NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "data.loader",
+               "data.pack", "data.resident", "ops.cuda.calib")
+
+
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "dsnt_pose2d_tpu_torch.train.loop" in mods
+    assert {f"dsnt_pose2d_tpu_torch.{m}" for m in NEW_MODULES} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -97,3 +102,15 @@ def test_config_json_loads_in_both_packages(path):
         jconfig.config_from_json(tconfig.config_to_json(t)))) == json.loads(
         tconfig.config_to_json(t))
     assert tconfig.MODEL_VERSION == jconfig.MODEL_VERSION == 2
+
+
+def test_benches_default_to_cuda_and_raise_without_it(no_cuda, monkeypatch):
+    from dsnt_pose2d_tpu_torch.bench import kernel, step
+    from dsnt_pose2d_tpu_torch.data import resident
+
+    for main in (step.main, kernel.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([])
+    monkeypatch.delenv("DSNT_RESIDENT_BUDGET_BYTES", raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resident.resident_budget_bytes()

@@ -89,8 +89,7 @@ def test_head_cpu_tensor_runs_plain_version():
     exp = fused_dsnt_head_reference(torch.from_numpy(raw), torch.from_numpy(t),
                                     reg="kl")
     assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
-    assert launch_counts() == {"dsnt_head_fwd": 0, "dsnt_head_bwd": 0,
-                               "row_shift": 0}
+    assert not any(launch_counts().values()), launch_counts()
 
 
 def test_head_rejects_bad_modes():

@@ -79,8 +79,7 @@ def test_head_vjp_matches_jax(shape, reg, preact):
     raw, t, gc, gr = _data(*shape, seed=sum(shape))
     reset_launch_counts()
     got = _port_dh(fused_dsnt_head, raw, t, gc, gr, reg, preact)
-    assert launch_counts() == {"dsnt_head_fwd": 0, "dsnt_head_bwd": 0,
-                               "row_shift": 0}
+    assert not any(launch_counts().values()), launch_counts()
     np.testing.assert_allclose(got, _jax_dh(raw, t, gc, gr, reg, preact), **TOL)
 
 

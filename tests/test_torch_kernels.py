@@ -12,14 +12,17 @@ the kernel sums in another order than the plain version); the head's
 backward dh rtol 1e-4 with atol 5e-6 of the largest |dh|, at least 2e-6:
 dh = z (u - <z, u>) keeps a few fp32 ulps of |u|, which reaches ~1e2 where
 KL's log(g + eps) meets a pixel far from the target; row_shift bitwise (both
-round each product and the sum separately).
+round each product and the sum separately); the calibration kernels: copy
+bitwise (one fp32 add), exp rtol 1e-6 (full-precision expf against
+torch.exp), softmax rtol 2e-6 / atol 1e-9 (4096 terms summed in another
+order than torch.softmax).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dsnt_pose2d_tpu_torch.ops.cuda import (MAX_HW, PREACT_KINDS, REG_KINDS,
+from dsnt_pose2d_tpu_torch.ops.cuda import (MAX_HW, PREACT_KINDS, REG_KINDS, calib,
                                             fused_dsnt_head,
                                             fused_dsnt_head_bwd_reference,
                                             fused_dsnt_head_reference,
@@ -148,3 +151,34 @@ def test_row_shift_kernel_masks_out_of_row_taps(cuda):
     fracs = torch.tensor([0.5, 0.5], device=cuda)
     got = shift_rows(rows, starts, fracs, 3)
     assert torch.equal(got, shift_rows_reference(rows, starts, fracs, 3))
+
+
+CALIB_TOL = {"copy": None, "exp": dict(rtol=1e-6, atol=0.0),
+             "smax": dict(rtol=2e-6, atol=1e-9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(CALIB_TOL))
+@pytest.mark.parametrize("shape", [(8192, 4096), (130, 4096), (37, 1028)])
+def test_calib_kernel_matches_plain(cuda, shape, kind):
+    rng = np.random.default_rng(shape[0])
+    x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)).to(cuda)
+    s = torch.full((1,), 0.37, device=cuda)
+    reset_launch_counts()
+    got = getattr(calib, f"calib_{kind}")(x, s)
+    exp = getattr(calib, f"calib_{kind}_reference")(x, s)
+    torch.cuda.synchronize()
+    assert launch_counts()[f"calib_{kind}"] == 1
+    if CALIB_TOL[kind] is None:
+        assert torch.equal(got, exp)
+    else:
+        torch.testing.assert_close(got, exp, **CALIB_TOL[kind])
+
+
+@pytest.mark.cuda
+def test_calib_kernel_refuses_misaligned_rows(cuda):
+    x = torch.zeros((4, 12), device=cuda)[:, 1:9].contiguous()
+    s = torch.zeros((1,), device=cuda)
+    assert calib.calib_copy(x, s).shape == (4, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        calib.calib_copy(torch.zeros(33, device=cuda)[1:].view(4, 8), s)

@@ -309,7 +309,6 @@ def test_fp32_step_advances_state_on_plain_versions(fp32_step):
     # CPU tensors: the plain versions ran, no kernel launched; one optimizer
     # step was taken and the module was left in train mode.
     state = fp32_step.step.state
-    assert fp32_step.launches == {"dsnt_head_fwd": 0, "dsnt_head_bwd": 0,
-                                  "row_shift": 0}
+    assert not any(fp32_step.launches.values()), fp32_step.launches
     assert state.step == 1 and state.optimizer.count == 1
     assert fp32_step.model.net.training
