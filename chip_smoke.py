@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100, ``sm_90a``).
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, drives the serving and eval
+Builds the port's CUDA kernels from the sources in this checkout (and
+reports each kernel's registers, spills and SASS instruction count), times
+the calibration kernels first (their copy rate is the ceiling every other
+kernel's rate is stated against), holds each kernel against its plain
+PyTorch version on the card, drives the serving and eval
 steps and then the train step of the flagship config
 (``configs/hg8_dsnt_js_train.json``: 8-stack hourglass, 256 features, 256-px
 input, bf16 backbone with fp32 params, fused DSNT head with the JS
@@ -10,8 +13,7 @@ regularizer, shear warp with rotation, RMSProp) at batch 32 on 384-px
 synthetic canvases, and times the kernels and the steps.  Then it drives
 the port's bench entry points at small counts (``bench.kernel``'s rooflines
 with the calibration kernels, and ``bench.step``'s device step and
-streaming and resident epochs at batch 32), holds the calibration kernels
-against their plain versions and times them beside PyTorch's own calls.
+streaming and resident epochs at batch 32).
 
 Run from the root of a checkout, with no arguments:
 
@@ -31,6 +33,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -159,6 +162,76 @@ def phase_device():
     return card
 
 
+def _short_name(mangled: str, demangled: str) -> str:
+    name = demangled.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ")
+    return name.split("(", 1)[0] if name != mangled else name
+
+
+def _demangle(names: list) -> dict:
+    """Mangled -> readable kernel names (``c++filt``), or the names as they
+    are where it is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                             capture_output=True, check=True, timeout=60).stdout
+        return {m: _short_name(m, d) for m, d in zip(names, out.splitlines())}
+    except (OSError, subprocess.SubprocessError):
+        return {m: m for m in names}
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers, shared memory, stack and spills of each kernel of a source,
+    from the ``-Xptxas=-v`` lines of its build log."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import build
+
+    kernels, cur = {}, None
+    for line in build.log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = kernels.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    names = _demangle(list(kernels))
+    return {names[k]: v for k, v in kernels.items()}
+
+
+def sass_counts(name: str) -> dict | None:
+    """Instructions (NOPs left out) of each kernel in a built library, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump.  The
+    head's forward is fully unrolled, so for it this is also the count a
+    thread executes, bar the Gaussian's factor loop and the thresholded
+    fallback."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+            counts[cur] += 1
+    names = _demangle(list(counts))
+    return {names[k]: v for k, v in counts.items()}
+
+
 def phase_build():
     from dsnt_pose2d_tpu_torch.ops.cuda import build
 
@@ -168,6 +241,8 @@ def phase_build():
         build.load(name)
     emit("build", sources=list(build.SOURCES), compile_s=took,
          total_s=time.perf_counter() - t0, flags=list(build.NVCC_FLAGS))
+    emit("build_ptxas", per_source={n: ptxas_report(n) for n in build.SOURCES})
+    emit("build_sass", instructions={n: sass_counts(n) for n in build.SOURCES})
 
 
 def head_inputs(n, h, w, seed, dev):
@@ -524,8 +599,9 @@ def head_bytes_ops(n, hw, reg):
     return nbytes, HEAD_FLOPS_PER_ELEMENT[reg] * n * hw
 
 
-def phase_head_on_main_path(run):
-    """The head kernel on the main path's own heatmaps, checked and timed."""
+def phase_head_on_main_path(run, ceiling):
+    """The head kernel on the main path's own heatmaps, checked and timed,
+    each call's rate beside the measured ceiling."""
     from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
                                                 fused_dsnt_head_reference)
@@ -550,7 +626,8 @@ def phase_head_on_main_path(run):
         b_ms, by = bound_ms(nbytes, nops)
         work[key] = {"rows": n, "hw": h * w, **times, "bound_ms": b_ms,
                      "bound_by": by, "bytes": nbytes,
-                     "GB_per_s": nbytes / times["ms"] / 1e6}
+                     "GB_per_s": nbytes / times["ms"] / 1e6,
+                     "frac_of_ceiling": nbytes / times["ms"] / 1e6 / ceiling}
         for k in ("ms", "plain_ms"):
             totals[k] += times[k]
         totals["bound_ms"] += b_ms
@@ -570,10 +647,10 @@ def row_shift_library(rows, starts, fracs, out, stride):
     return img, grid
 
 
-def phase_row_shift_timing(recorded):
+def phase_row_shift_timing(recorded, ceiling):
     """row_shift timed on the inputs the main path gave it, with per-step
     totals for each path (serve: the two calls of one eval step; train: the
-    two of one train step)."""
+    two of one train step), each call's rate beside the measured ceiling."""
     from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
 
@@ -599,7 +676,8 @@ def phase_row_shift_timing(recorded):
             b_ms, by = bound_ms(nbytes, 3 * r * out)
             work[f"{r}x{length}->{out}"] = {
                 **times, "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
-                "GB_per_s": nbytes / times["ms"] / 1e6}
+                "GB_per_s": nbytes / times["ms"] / 1e6,
+                "frac_of_ceiling": nbytes / times["ms"] / 1e6 / ceiling}
             for k in ("ms", "plain_ms", "library_ms"):
                 totals[k] += times[k]
             totals["bound_ms"] += b_ms
@@ -902,6 +980,7 @@ def phase_calib_vs_plain(dev):
 # Operations per element: the add; the add and expf; the add, max, subtract,
 # expf, sum and division.
 CALIB_OPS_PER_ELEMENT = {"copy": 1, "exp": 2, "smax": 6}
+EXP_ROUNDS = 6
 
 
 def phase_calibration(card):
@@ -929,8 +1008,21 @@ def phase_calibration(card):
                      "GB_per_s": nbytes / times["ms"] / 1e6,
                      "library_GB_per_s": nbytes / times["library_ms"] / 1e6}
     ceiling = out["copy"]["GB_per_s"]
+    # calib_exp against torch.exp in turns (kernel, library, library,
+    # kernel), EXP_ROUNDS times: the two differ by less than either's
+    # spread between runs, so they are compared only inside one window.
+    kernel = calib_fns("exp")[0]
+    turns = {"kernel": [], "library": []}
+    for _ in range(EXP_ROUNDS):
+        for who in ("kernel", "library", "library", "kernel"):
+            fn = (lambda: kernel(x, s)) if who == "kernel" else library["exp"]
+            turns[who].append(timing.device_ms(fn)[0])
+    exp_turns = {who: {"median_ms": statistics.median(t), "min_ms": min(t),
+                       "max_ms": max(t), "ms": t} for who, t in turns.items()}
+    exp_turns["kernel_over_library"] = (exp_turns["kernel"]["median_ms"]
+                                        / exp_turns["library"]["median_ms"])
     emit("calibration", card=card, shape=[rows, COLS], per_kernel=out,
-         ceiling_GB_per_s=ceiling,
+         ceiling_GB_per_s=ceiling, exp_vs_torch_exp_in_turns=exp_turns,
          library_calls=["torch.add(x, s)", "torch.exp(x)",
                         "torch.softmax(x, dim=1)"])
     return out, ceiling
@@ -985,10 +1077,14 @@ def main():
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    # The calibration first: its copy rate is the ceiling the other kernels'
+    # rates are stated against.
+    calib_errs = phase_calib_vs_plain(dev)
+    calib_times, ceiling = phase_calibration(card)
     phase_head_vs_plain(dev)
     bwd_err = phase_head_bwd_vs_plain(dev)
     run = phase_serve(dev)
-    head = phase_head_on_main_path(run)
+    head = phase_head_on_main_path(run, ceiling)
     emit("dsnt_head_fwd_times", card=card, **head)
     phase_times(run, card)
     phase_profile(run, card)
@@ -1003,12 +1099,11 @@ def main():
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
     emit("dsnt_head_bwd_times", card=card, **bwd)
     shift_err = phase_row_shift_vs_plain(recorded)
-    shift, shift_lib_err = phase_row_shift_timing(recorded)
-    emit("row_shift_times", card=card, by_path=shift, library_err=shift_lib_err)
+    shift, shift_lib_err = phase_row_shift_timing(recorded, ceiling)
+    emit("row_shift_times", card=card, by_path=shift, library_err=shift_lib_err,
+         ceiling_GB_per_s=ceiling)
     del train, recorded
     torch.cuda.empty_cache()
-    calib_errs = phase_calib_vs_plain(dev)
-    calib_times, ceiling = phase_calibration(card)
     bench_launches = phase_kernel_bench(card)
     for name, n in phase_bench(card).items():
         bench_launches[name] += n

@@ -50,7 +50,8 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The shared library built from ``name``.cu (named by source and flags)."""
     if name not in SOURCES:
         raise ValueError(f"unknown CUDA source {name!r}")
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
@@ -60,7 +61,7 @@ def _lib_path(name: str) -> Path:
 
 def log_path(name: str) -> Path:
     """The compiler's output for ``name`` (ptxas register/shared-memory lines)."""
-    return _lib_path(name).with_suffix(".log")
+    return lib_path(name).with_suffix(".log")
 
 
 def build_all(names=SOURCES) -> dict:
@@ -70,7 +71,7 @@ def build_all(names=SOURCES) -> dict:
     t0 = time.perf_counter()
     jobs = {}
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -97,5 +98,5 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if needed."""
     if name not in _libs:
         build_all((name,))
-        _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return _libs[name]

@@ -153,6 +153,104 @@ def test_row_shift_kernel_masks_out_of_row_taps(cuda):
     assert torch.equal(got, shift_rows_reference(rows, starts, fracs, 3))
 
 
+def _shift_inputs(r, length, out, stride, seed, device):
+    rng = np.random.default_rng(seed)
+    rows = rng.uniform(size=(r, length)).astype(np.float32)
+    starts = rng.integers(0, length - out - stride + 1, size=(r,))
+    starts[:8] = np.arange(8) % (length - out - stride + 1)  # every residue mod 4
+    fracs = rng.uniform(size=(r,)).astype(np.float32)
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(starts.astype(np.int32)).to(device),
+            torch.from_numpy(fracs).to(device))
+
+
+# Output rows of every length mod 4 (rows start at every 16-byte phase of the
+# flat output), the strides the shear warp uses (1: gray, 3: RGB) and one the
+# kernel's vector path does not take (2); 37 rows is no multiple of the rows
+# a block holds.
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("out", [96, 97, 98, 99])
+def test_row_shift_kernel_bitwise_layouts(cuda, out, stride):
+    rows, starts, fracs = _shift_inputs(37, out + 13, out, stride, out, cuda)
+    got = shift_rows(rows, starts, fracs, out, stride=stride)
+    exp = shift_rows_reference(rows, starts, fracs, out, stride=stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+# The main path's four calls: the train step's two passes, then the eval
+# step's (hg8, batch 32, 384-px canvases, RGB rows).
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12288, 3864, 2502), (8192, 1680, 768),
+                                   (12288, 1176, 1158), (8192, 786, 768)])
+def test_row_shift_kernel_bitwise_main_path_shapes(cuda, shape):
+    r, length, out = shape
+    rows, starts, fracs = _shift_inputs(r, length, out, 3, length, cuda)
+    starts = starts - starts % 3       # whole RGB pixels, as the warp gives
+    got = shift_rows(rows, starts, fracs, out, stride=3)
+    exp = shift_rows_reference(rows, starts, fracs, out, stride=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+def test_row_shift_kernel_unaligned_rows(cuda):
+    # A base off the 16-byte grid takes the scalar path: still bitwise.
+    rows, starts, fracs = _shift_inputs(41, 300, 250, 3, 1, cuda)
+    flat = torch.empty(41 * 300 + 1, device=cuda)
+    shifted = flat[1:].view(41, 300)
+    shifted.copy_(rows)
+    got = shift_rows(shifted, starts, fracs, 250, stride=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, shift_rows_reference(rows, starts, fracs, 250,
+                                                 stride=3))
+
+
+def _adversarial_heads(n, h, w, seed, device):
+    """Rows where the kernel's rewritten arithmetic could part from the plain
+    version: z underflowing (one-hot), every logit below the threshold, and
+    targets so far off the grid that the Gaussian's sum underflows."""
+    rng = np.random.default_rng(seed)
+    raw = (rng.normal(size=(n, h * w)) * 3).astype(np.float32)
+    raw[0] = -50.0
+    raw[0, (h * w) // 3] = 60.0      # one-hot: every other z is 0
+    raw[1] *= 40.0                   # most z underflow
+    raw[2] -= 100.0                  # all below the threshold: plain softmax
+    t = rng.uniform(-0.8, 0.8, size=(n, 2)).astype(np.float32)
+    t[0] = (50.0, 50.0)              # one-hot z and no Gaussian at all
+    t[3] = (40.0, -35.0)             # sum G underflows, every gn is 0
+    t[4] = (3.0, 0.0)                # sum G below eps
+    t[5] = (1.32, 1.32)              # sum G underflows, the corner's gn > 0
+    return (torch.from_numpy(raw.reshape(n, h, w)).to(device),
+            torch.from_numpy(t).to(device))
+
+
+# The 64x64 layout, 64x64 at a base off the 16-byte grid, a small and a
+# MAX_HW generic map.
+@pytest.mark.cuda
+@pytest.mark.parametrize("preact", PREACT_KINDS)
+@pytest.mark.parametrize("reg", REG_KINDS)
+@pytest.mark.parametrize("case", ["64x64", "64x64_unaligned", "7x9", "max_hw"])
+def test_head_kernel_adversarial_rows(cuda, case, reg, preact):
+    h, w = {"64x64": (64, 64), "64x64_unaligned": (64, 64), "7x9": (7, 9),
+            "max_hw": (128, MAX_HW // 128)}[case]
+    raw, t = _adversarial_heads(21, h, w, 11, cuda)
+    if case == "64x64_unaligned":
+        flat = torch.empty(raw.numel() + 1, device=cuda)
+        flat[1:].copy_(raw.reshape(-1))
+        raw = flat[1:].view(raw.shape)
+    kw = dict(sigma_px=1.0, reg=reg, preact=preact, threshold=0.5)
+    got_c, got_r = fused_dsnt_head(raw, t, **kw)
+    exp_c, exp_r = fused_dsnt_head_reference(raw, t, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_c).all()
+    torch.testing.assert_close(got_c, exp_c, atol=2e-6, rtol=0)
+    if exp_r is not None:
+        assert torch.isfinite(got_r).all()
+        torch.testing.assert_close(got_r, exp_r, rtol=1e-5, atol=1e-5)
+
+
 CALIB_TOL = {"copy": None, "exp": dict(rtol=1e-6, atol=0.0),
              "smax": dict(rtol=2e-6, atol=1e-9)}
 
