@@ -734,7 +734,7 @@ def profile_step(name, step, median_ms, card):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         launched = kernels.launch_counts()
-        kernels_by_name, spans = {}, []
+        kernels_by_name, spans, instances = {}, [], {}
         seen = dict.fromkeys(launched, 0)     # ported kernels' activities
         for e in _device_events(prof):
             spans.append((e.time_range.start, e.time_range.end))
@@ -742,7 +742,10 @@ def profile_step(name, step, median_ms, card):
             kernels_by_name[e.name] = (
                 ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
             for k in seen:   # "(anonymous namespace)::row_shift_kernel(float ..."
-                seen[k] += re.search(rf"\b{k}_kernel\b", e.name) is not None
+                if re.search(rf"\b{k}_kernel\b", e.name):
+                    seen[k] += 1
+                    inst = _short_name("", e.name)
+                    instances[inst] = instances.get(inst, 0) + 1
         if spans and seen == launched:
             break
     else:
@@ -759,8 +762,10 @@ def profile_step(name, step, median_ms, card):
          device_busy_share=busy_us / 1e3 / wall_ms,
          busy_share_of_unprofiled_median=busy_us / 1e3 / median_ms,
          device_launches=len(spans), ported_kernel_activities=seen,
+         ported_kernel_instances=instances,
          top=[{"name": k[:90], "ms": ms, "count": c}
               for k, (ms, c) in top[:12]])
+    return instances
 
 
 def phase_profile(run, card):
@@ -880,8 +885,10 @@ def phase_train(dev, card):
                             "train_again": step_ms_2[1:]},
          peak_mem_bytes=peak, resident_before_step_bytes=base,
          clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
-    profile_step("train_step", lambda: train_step(batch), step_ms[0], card)
+    instances = profile_step("train_step", lambda: train_step(batch), step_ms[0],
+                             card)
     return {"cfg": cfg, "batch": batch, "pre_args": pre_args, "launches": launches,
+            "profile_instances": instances,
             "row_shift_calls": row_shift_calls,
             "heat": grab["heat"][0], "dheat": dheat, "model": model}
 
@@ -919,9 +926,21 @@ def phase_head_bwd_on_main_path(train, card):
     gc, gr = torch.autograd.grad(loss, (coords, regv))
 
     got = fused_dsnt_head_bwd(heat, t, gc, gr, **kw)
+    again = fused_dsnt_head_bwd(heat, t, gc, gr, **kw)
     exp = fused_dsnt_head_bwd_reference(heat, t, gc, gr, **kw)
     torch.cuda.synchronize()
     assert_dh_close(got, exp)
+    if not torch.equal(got, again):
+        raise AssertionError("two launches of the head backward on the same "
+                             "inputs differ")
+    # The layout the train step's backward ran in, from its profile's
+    # kernel names ("dsnt_head_bwd_kernel<1, false, Map64>").
+    layouts = {name.rsplit(", ", 1)[-1].rstrip(">")
+               for name in train["profile_instances"]
+               if name.startswith("dsnt_head_bwd_kernel<")}
+    if layouts != {"Map64"}:
+        raise AssertionError(f"the train step's head backward ran in "
+                             f"{layouts}, not the 64x64 layout")
     scale = exp.abs().max().item()
     step_err = (got - train["dheat"]).abs().max().item()
     assert step_err <= TRAIN_TOL["dheat_rel_to_max"] * scale, step_err
@@ -936,7 +955,8 @@ def phase_head_bwd_on_main_path(train, card):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "rows": n, "hw": h * w, "bytes": nbytes,
             "GB_per_s": nbytes / times["ms"] / 1e6, "dh_max_abs": scale,
-            "vs_train_step_dheat_max_diff": step_err}
+            "vs_train_step_dheat_max_diff": step_err,
+            "bitwise_equal_across_launches": True, "layout": "Map64"}
 
 
 def calib_fns(kind):
@@ -1131,7 +1151,7 @@ def main():
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
          **launches("dsnt_head_bwd"), "max_abs_err": bwd["max_abs_err"],
-         **{k: bwd[k] for k in keys},
+         **{k: bwd[k] for k in keys}, "layout": bwd["layout"],
          "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"])},
         # ms and the other times: the two calls of one serve step; those of
         # one train step are under by_path.

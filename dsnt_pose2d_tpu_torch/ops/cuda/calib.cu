@@ -17,12 +17,16 @@
 // the H100 SXM's 3.35 TB/s); their few operations per element (an add, an
 // expf, a max, a sum and a division) are far below the fp32 rate.  Design:
 //
-// - copy and exp give each thread 4 float4 (16-byte loads and stores), all
-//   4 loads issued before the first store so that each warp keeps 2 KB in
-//   flight, and one block of 256 threads to each 1024 float4 (a grid-stride
-//   loop over 8 blocks per SM reached 2701 GB/s on an H100 80GB HBM3, 6%
-//   below this file's softmax); the launcher takes cols % 4 == 0 only, so
-//   rows * cols is whole float4s, and the grid's ragged end is masked;
+// - copy gives each thread 4 float4 (16-byte loads and stores), all 4 loads
+//   issued before the first store so that each warp keeps 2 KB in flight,
+//   and one block of 256 threads to each 1024 float4 (a grid-stride loop
+//   over 8 blocks per SM reached 2701 GB/s on an H100 80GB HBM3, 6% below
+//   this file's softmax).  Its rate is the ceiling every other kernel is
+//   stated against, so its layout stays fixed;
+// - exp takes the same code in its own layout, ExpLayout below (see there
+//   for why it is faster than the copy's);
+// - both launchers take cols % 4 == 0 only, so rows * cols is whole float4s,
+//   and the grid's ragged end is masked;
 // - smax runs one block of 256 threads per row and keeps the row in
 //   registers: each thread holds up to 4 float4 (16 floats, cols <= 4096),
 //   so x is read once and o written once.  The row maximum and then the sum
@@ -53,7 +57,33 @@ struct ExpOp {
   }
 };
 
-template <typename Op>
+// How an elementwise kernel cuts the array: T threads a block, V float4 a
+// thread (float4 number b * T * V + t + k * T, k = 0..V-1, all V loads
+// issued before the first store).
+template <int T, int V>
+struct Layout {
+  static constexpr int kThreads = T;
+  static constexpr int kVec = V;
+};
+
+using CopyLayout = Layout<kThreads, kVec>;
+
+// exp's layout: 128 threads, 2 float4 a thread, which is the geometry of
+// PyTorch's vectorized elementwise kernels.  Timed in turns against
+// torch.exp at (8192, 4096) on an H100 80GB HBM3 at 700 W, it reads what
+// torch.exp reads (0.0922-0.0924 ms against 0.0923), while the copy's 256 x
+// 4, 128 x 4 and 256 x 8 read 0.0929-0.0943, like the copy itself.  The
+// time follows the number of waves of resident blocks, not a thread's share
+// of the work: 128 x 2 (24 registers) makes 32768 blocks, ~15.5 waves at 16
+// blocks an SM, while 256 x 4 and 128 x 4 make ~7.8 and 256 x 8 (48
+// registers, 5 blocks an SM) ~6.2, so more of the card idles in their last
+// wave.  No evict-first hints (__ldcs/__stcs): they read 0.6% faster in
+// turns but 0.9% slower right after the copy's calls, so their time
+// depends on what ran before; without them the kernel reads the same in
+// either order.
+using ExpLayout = Layout<128, 2>;
+
+template <typename Op, class L>
 __device__ __forceinline__ void elementwise(const float* __restrict__ x,
                                             const float* __restrict__ s,
                                             float* __restrict__ o,
@@ -61,18 +91,19 @@ __device__ __forceinline__ void elementwise(const float* __restrict__ x,
   const Op op{};
   const float sv = *s;
   const long long first =
-      static_cast<long long>(blockIdx.x) * (kThreads * kVec) + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * (L::kThreads * L::kVec) +
+      threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* o4 = reinterpret_cast<float4*>(o);
-  float4 v[kVec];
+  float4 v[L::kVec];
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    const long long i = first + k * kThreads;
+  for (int k = 0; k < L::kVec; ++k) {
+    const long long i = first + k * L::kThreads;
     if (i < n4) v[k] = x4[i];
   }
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    const long long i = first + k * kThreads;
+  for (int k = 0; k < L::kVec; ++k) {
+    const long long i = first + k * L::kThreads;
     if (i < n4) {
       v[k].x = op(v[k].x, sv);
       v[k].y = op(v[k].y, sv);
@@ -86,13 +117,13 @@ __device__ __forceinline__ void elementwise(const float* __restrict__ x,
 __global__ void __launch_bounds__(kThreads)
 calib_copy_kernel(const float* __restrict__ x, const float* __restrict__ s,
                   float* __restrict__ o, long long n4) {
-  elementwise<AddOp>(x, s, o, n4);
+  elementwise<AddOp, CopyLayout>(x, s, o, n4);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ExpLayout::kThreads)
 calib_exp_kernel(const float* __restrict__ x, const float* __restrict__ s,
                  float* __restrict__ o, long long n4) {
-  elementwise<ExpOp>(x, s, o, n4);
+  elementwise<ExpOp, ExpLayout>(x, s, o, n4);
 }
 
 // Reduces v over the block in a fixed order; every thread gets the result.
@@ -172,8 +203,10 @@ long long float4s(int rows, int cols) {
   return static_cast<long long>(rows) * (cols / 4);
 }
 
+template <class L>
 unsigned elementwise_blocks(long long n4) {
-  return static_cast<unsigned>((n4 + kThreads * kVec - 1) / (kThreads * kVec));
+  constexpr int per_block = L::kThreads * L::kVec;
+  return static_cast<unsigned>((n4 + per_block - 1) / per_block);
 }
 
 bool bad_shape(int rows, int cols) {
@@ -190,7 +223,8 @@ int calib_copy(const float* x, const float* s, float* o, int rows, int cols,
                cudaStream_t stream) {
   if (bad_shape(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n4 = float4s(rows, cols);
-  calib_copy_kernel<<<elementwise_blocks(n4), kThreads, 0, stream>>>(x, s, o, n4);
+  calib_copy_kernel<<<elementwise_blocks<CopyLayout>(n4), kThreads, 0,
+                      stream>>>(x, s, o, n4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,7 +232,8 @@ int calib_exp(const float* x, const float* s, float* o, int rows, int cols,
               cudaStream_t stream) {
   if (bad_shape(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
   const long long n4 = float4s(rows, cols);
-  calib_exp_kernel<<<elementwise_blocks(n4), kThreads, 0, stream>>>(x, s, o, n4);
+  calib_exp_kernel<<<elementwise_blocks<ExpLayout>(n4), ExpLayout::kThreads,
+                     0, stream>>>(x, s, o, n4);
   return static_cast<int>(cudaGetLastError());
 }
 

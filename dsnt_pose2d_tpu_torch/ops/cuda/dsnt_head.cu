@@ -41,11 +41,23 @@
 // coordinates; here loops are bounded by H*W, so any map size up to kMaxHw
 // works.
 //
-// The backward (its first design, to be rebuilt on the forward's layouts):
-// one 256-thread block per row; the row is read from device memory once,
-// coalesced, into shared memory (16 KiB for a 64x64 map), and every later
-// pass (exp, the Gaussian, the derivative) reads shared memory.  Grid
-// coordinates are computed from the index, not read.
+// The backward (redesigned for Hopper on the forward's pieces; see
+// bwd_row_map64): the same row in registers for the 64x64 map, the same
+// barrier 1 (softmax and the Gaussian's sums, or var's moments), u held in
+// the logits' registers with at most one logf an element (none where the
+// Gaussian has underflowed), one more barrier for <z, u>, and dh written as
+// four float4 a thread: 1 KB of dynamic shared memory a block (the
+// Gaussian's factors and their logs) and no integer division.  The bytes
+// it must move are the forward's twice (dh is written).
+//
+// Which layout takes which map:
+//   forward   Map64 for 64x64 rows at a 16-byte aligned base; AnyMap (the
+//             row in registers, 64 values a thread) for every other map;
+//   backward  Map64 for 64x64 rows whose raw and dh both start 16-byte
+//             aligned; StagedRow (the row in 2 * H * W floats of shared
+//             memory, read in three passes) for every other map, since a
+//             row-in-registers AnyMap backward would hold the logits, the
+//             exponentials and u for 64 values a thread.
 //
 // Block sums use warp shuffles and a fixed order, so results are
 // deterministic run to run.
@@ -200,6 +212,13 @@ __device__ __forceinline__ void value_xy(int k, int w, int* x, int* y) {
   }
 }
 
+// log z taken from the logit v, as (v - m) - log S.  Every use multiplies
+// it by z, so a z of 0 takes 0: a -inf logit would give 0 * (-inf) = NaN,
+// where the contract's log(z + eps) is finite.
+__device__ __forceinline__ float log_z(float v, float m, float ls, float z) {
+  return z == 0.f ? 0.f : (v - m) - ls;
+}
+
 // The pixel-center coordinate (2 i + 1) / n - 1 of normalized_linspace.
 __device__ __forceinline__ float grid_coord(int i, int n) {
   return (2.f * i + 1.f) / n - 1.f;
@@ -341,6 +360,60 @@ __device__ __forceinline__ float softmax_partials(const float (&v)[L::kVals],
   return mw;
 }
 
+// The separable Gaussian's factors, each thread a few of the W + H, into
+// f: gx[w], log gx[w], gy[h], log gy[h] (the logs -d^2/2, floored at
+// kLogFloor).  acc[3] and acc[4] gain this thread's share of sum gx and
+// sum gy; t is the row's target (x, y).
+template <int NS>
+__device__ __forceinline__ void gauss_factors(float* f,
+                                              const float* __restrict__ t,
+                                              int h, int w, float inv_sx,
+                                              float inv_sy, float (&acc)[NS]) {
+  static_assert(NS == 5, "acc[3] and acc[4] hold the Gaussian's sums");
+  const float tx = t[0];
+  const float ty = t[1];
+  for (int c = threadIdx.x; c < w + h; c += kThreads) {
+    const bool is_x = c < w;
+    const float d = is_x ? (grid_coord(c, w) - tx) * inv_sx
+                         : (grid_coord(c - w, h) - ty) * inv_sy;
+    const float l = -0.5f * d * d;
+    const float g = expf(l);
+    float* fc = is_x ? f + c : f + 2 * w + (c - w);
+    fc[0] = g;
+    fc[is_x ? w : h] = fmaxf(l, kLogFloor);
+    if (is_x) {
+      acc[3] += g;
+    } else {
+      acc[4] += g;
+    }
+  }
+}
+
+// Barrier 1 of the row-in-registers kernels: e = exp(v - m_w) and the
+// row's max (returned) and sums, as combine_warps gives them (acc holds
+// this thread's Gaussian sums on entry, if any).  A thresholded row that
+// keeps no logit takes the plain softmax: one more barrier, on part[1].
+template <class L, bool THRESH, bool VAR, int NS>
+__device__ __forceinline__ float softmax_row(const float (&v)[L::kVals],
+                                             float (&e)[L::kVals],
+                                             float (&acc)[NS],
+                                             float (*part)[kWarps][NS + 1],
+                                             int h, int w, float threshold,
+                                             float (&tot)[NS], float* own) {
+  constexpr int kNr = (NS == 5 && !VAR) ? 3 : NS;  // sums relative to a max
+  float mw = softmax_partials<L, VAR>(v, e, acc, h, w, THRESH, threshold);
+  float m = combine_warps<NS, kNr>(part[0], acc, mw, tot, own);
+  if (THRESH && m == -INFINITY) {
+    // No logit reaches the threshold: the plain softmax (the Gaussian's
+    // partial sums are kept).
+#pragma unroll
+    for (int k = 0; k < kNr; ++k) acc[k] = 0.f;
+    mw = softmax_partials<L, VAR>(v, e, acc, h, w, false, threshold);
+    m = combine_warps<NS, kNr>(part[1], acc, mw, tot, own);
+  }
+  return m;
+}
+
 // Forward, one 256-thread block per row, the row held in registers.
 //   barrier 1: row max and the sums of e, e X, e Y (and e X^2, e Y^2 for
 //              var, or the Gaussian's two factor sums), merged across warps
@@ -375,7 +448,6 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
   constexpr bool kGauss = uses_gauss<REG>();
   constexpr bool kIsVar = REG == kVar;
   constexpr int kNs = (kGauss || kIsVar) ? 5 : 3;   // sums of barrier 1
-  constexpr int kNr = kGauss ? 3 : kNs;           // of them relative to a max
   constexpr int kVals = L::kVals;
   extern __shared__ float gfac[];  // kGauss: gx[w], log gx, gy[h], log gy
   __shared__ float part[2][kWarps][kNs + 1];
@@ -388,42 +460,17 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
   float v[kVals], e[kVals];
   load_row<L>(raw + row * hw, hw, v);
 
-  // The Gaussian's factors, each thread a few of the W + H.
   float acc[kNs];
 #pragma unroll
   for (int k = 0; k < kNs; ++k) acc[k] = 0.f;
   if constexpr (kGauss) {
-    const float tx = targets[2 * row];
-    const float ty = targets[2 * row + 1];
-    for (int c = threadIdx.x; c < w + h; c += kThreads) {
-      const bool is_x = c < w;
-      const float d = is_x ? (grid_coord(c, w) - tx) * inv_sx
-                           : (grid_coord(c - w, h) - ty) * inv_sy;
-      const float l = -0.5f * d * d;
-      const float g = expf(l);
-      float* f = is_x ? gfac + c : gfac + 2 * w + (c - w);
-      f[0] = g;
-      f[is_x ? w : h] = fmaxf(l, kLogFloor);
-      if (is_x) {
-        acc[3] += g;
-      } else {
-        acc[4] += g;
-      }
-    }
+    gauss_factors(gfac, targets + 2 * row, h, w, inv_sx, inv_sy, acc);
   }
 
   // Barrier 1: the softmax's max and sums (and the Gaussian's sums).
   float tot[kNs], own;
-  float mw = softmax_partials<L, kIsVar>(v, e, acc, h, w, THRESH, threshold);
-  float m = combine_warps<kNs, kNr>(part[0], acc, mw, tot, &own);
-  if (THRESH && m == -INFINITY) {
-    // No logit reaches the threshold: the plain softmax (the Gaussian's
-    // partial sums are kept).
-#pragma unroll
-    for (int k = 0; k < kNr; ++k) acc[k] = 0.f;
-    mw = softmax_partials<L, kIsVar>(v, e, acc, h, w, false, threshold);
-    m = combine_warps<kNs, kNr>(part[1], acc, mw, tot, &own);
-  }
+  const float m = softmax_row<L, THRESH, kIsVar>(v, e, acc, part, h, w,
+                                                 threshold, tot, &own);
   const float rs = 1.f / tot[0];
   const float cx = tot[1] * rs;
   const float cy = tot[2] * rs;
@@ -460,14 +507,14 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
           // absorbed, and under 1e-22 where it is not.
           acc2 += z * kLn2;
         } else {
-          const float lz = (v[k] - m) - ls;
+          const float lz = log_z(v[k], m, ls, z);
           const float lg = (lgx[x] + lgy[y]) - lsg;
           const float lm = logf(0.5f * (z + gn) + kEps);
           acc2 += z * (lz - lm) + gn * (lg - lm);
         }
       } else if constexpr (REG == kKl) {
         const float lgn = (gn == 0.f) ? log_eps : logf(gn + kEps);
-        acc2 += z * (((v[k] - m) - ls) - lgn);
+        acc2 += z * (log_z(v[k], m, ls, z) - lgn);
       } else {
         acc2 += (z - gn) * (z - gn);
       }
@@ -504,16 +551,17 @@ __device__ __forceinline__ float reg_grad(float z, float gn, float gx,
   return 0.f;
 }
 
-// One block per row.  REG is the regularizer whose derivative enters u
-// (kNone when the caller has no reg cotangent); g_reg is read only then.
+// The backward of a row staged in shared memory (StagedRow: any map of up
+// to kMaxHw values but an aligned 64x64 one): the row is read from device
+// memory once, coalesced, into shared memory (2 * H * W floats: z, then u),
+// and every later pass reads shared memory; grid coordinates come from the
+// index by a division; three block reductions (six barriers).
 template <int REG, bool THRESH>
-__global__ void __launch_bounds__(kThreads)
-dsnt_head_bwd_kernel(const float* __restrict__ raw,
-                     const float* __restrict__ targets,
-                     const float* __restrict__ g_coords,
-                     const float* __restrict__ g_reg, float* __restrict__ dh,
-                     int h, int w, float threshold, float inv_sx,
-                     float inv_sy, float tvx, float tvy) {
+__device__ __forceinline__ void bwd_row_staged(
+    const float* __restrict__ raw, const float* __restrict__ targets,
+    const float* __restrict__ g_coords, const float* __restrict__ g_reg,
+    float* __restrict__ dh, int h, int w, float threshold, float inv_sx,
+    float inv_sy, float tvx, float tvy) {
   constexpr bool kGauss = uses_gauss<REG>();
   extern __shared__ float smem[];
   __shared__ float red[kWarps * 5];
@@ -597,6 +645,157 @@ dsnt_head_bwd_kernel(const float* __restrict__ raw,
   }
 }
 
+// The backward of a 64x64 row in registers (Map64), rebuilt on the
+// forward's pieces: 16 logits a thread from four float4 loads issued
+// together, the softmax and the Gaussian's sums in barrier 1 (softmax_row;
+// var's moments there too), u in the registers that held the logits, <z, u>
+// in barrier 2 (combine_sum), and dh written as four float4 a thread.
+//
+// u takes the exact derivative of the eps-guarded forward where eps is
+// absorbed (z, m2 >~ 1.7e-17 in fp32: z + eps == z); below that, the term
+// enters dh = z (...) times z < 3.4e-17, far below any tolerance:
+//   z / (z + eps), m2 / (m2 + eps)  -> 1, so they cancel (JS) or give +1 (KL)
+//   log(z + eps)                    -> (v - M) - log S, from the logit
+//                                      (log_z: 0 where z == 0)
+//   JS: 0.5 (lz - logf(m2 + eps)), m2 = (z + gn) / 2; 0.5 ln 2 where gn == 0
+//   KL: lz - logf(gn + eps) + 1; lz - log eps + 1 where gn == 0
+//   mse and var: no transcendental.
+// So js and kl take at most one logf an element, none where the Gaussian
+// has underflowed to gn == 0 (beyond ~14 sigma of the target: most of a
+// 64x64 map at sigma 1 px), plus the softmax's one expf.
+//
+// The separable gn = gx * (1 / max(sum G, eps)) * gy is the contract's
+// exp(-(dx^2 + dy^2)/2) / max(sum G, eps) to a few ulp wherever it matters,
+// as long as 1 / max(sum G, eps) <= 1.  A row whose sum G is below 1 (a
+// target off the grid) scales by more than 1, and then lifts values that
+// the contract's exp underflows to 0 or to an imprecise denormal before the
+// normalization, and KL's log(gn + eps) sees the difference.  Such a row
+// (uniform over the block) takes the contract's form,
+// expf(log gx + log gy) / max(sum G, eps): one more expf an element.
+template <int REG, bool THRESH>
+__device__ __forceinline__ void bwd_row_map64(
+    const float* __restrict__ raw, const float* __restrict__ targets,
+    const float* __restrict__ g_coords, const float* __restrict__ g_reg,
+    float* __restrict__ dh, float threshold, float inv_sx, float inv_sy,
+    float tvx, float tvy) {
+  using L = Map64;
+  constexpr bool kGauss = uses_gauss<REG>();
+  constexpr bool kIsVar = REG == kVar;
+  constexpr int kNs = (kGauss || kIsVar) ? 5 : 3;   // sums of barrier 1
+  constexpr int kVals = L::kVals;
+  constexpr int w = 64;
+  constexpr int h = 64;
+  constexpr int hw = h * w;
+  extern __shared__ float gfac[];  // kGauss: gx[w], log gx, gy[h], log gy
+  __shared__ float part[2][kWarps][kNs + 1];
+  __shared__ float red[kWarps];
+  const size_t row = blockIdx.x;
+
+  float v[kVals], e[kVals];
+  load_row<L>(raw + row * hw, hw, v);
+  const float gcx = g_coords[2 * row];
+  const float gcy = g_coords[2 * row + 1];
+  const float gr = (REG == kNone) ? 0.f : g_reg[row];
+
+  float acc[kNs];
+#pragma unroll
+  for (int k = 0; k < kNs; ++k) acc[k] = 0.f;
+  if constexpr (kGauss) {
+    gauss_factors(gfac, targets + 2 * row, h, w, inv_sx, inv_sy, acc);
+  }
+
+  // Barrier 1: the softmax's max and sums (and the Gaussian's sums).
+  float tot[kNs], own;
+  const float m = softmax_row<L, THRESH, kIsVar>(v, e, acc, part, h, w,
+                                                 threshold, tot, &own);
+  const float rs = 1.f / tot[0];
+  const float zc = own * rs;            // z = e * exp(m_w - M) / S
+  float mu_x = 0.f, mu_y = 0.f, cvx = 0.f, cvy = 0.f;
+  if constexpr (kIsVar) {
+    mu_x = tot[1] * rs;
+    mu_y = tot[2] * rs;
+    cvx = 2.f * (tot[3] * rs - mu_x * mu_x - tvx);
+    cvy = 2.f * (tot[4] * rs - mu_y * mu_y - tvy);
+  }
+  float rg = 0.f, ls = 0.f;
+  if constexpr (kGauss) rg = 1.f / fmaxf(tot[3] * tot[4], kEps);
+  if constexpr (REG == kJs || REG == kKl) ls = logf(tot[0]);
+  const bool off_grid = rg > 1.f;          // sum G < 1: the contract's form
+  [[maybe_unused]] const float log_eps = logf(kEps);
+  // The normalized Gaussian at (x, y).
+  [[maybe_unused]] auto gauss = [&](int x, int y) {
+    return off_grid ? expf(gfac[w + x] + gfac[2 * w + h + y]) * rg
+                    : gfac[x] * rg * gfac[2 * w + y];
+  };
+
+  // u (into v) and z (into e); this thread's share of <z, u>.
+  float dot = 0.f;
+#pragma unroll
+  for (int k = 0; k < kVals; ++k) {
+    int x, y;
+    value_xy<L>(k, w, &x, &y);
+    const float gx = grid_coord(x, w);
+    const float gy = grid_coord(y, h);
+    const float z = e[k] * zc;
+    float d = 0.f;
+    if constexpr (REG == kJs) {
+      const float gn = gauss(x, y);
+      if (gn == 0.f) {
+        d = 0.5f * kLn2;
+      } else {
+        d = 0.5f * (log_z(v[k], m, ls, z) - logf(0.5f * (z + gn) + kEps));
+      }
+    } else if constexpr (REG == kKl) {
+      const float gn = gauss(x, y);
+      const float lgn = (gn == 0.f) ? log_eps : logf(gn + kEps);
+      d = log_z(v[k], m, ls, z) - lgn + 1.f;
+    } else if constexpr (REG == kMse) {
+      const float gn = gauss(x, y);
+      d = 2.f * (z - gn) * (1.f / hw);
+    } else if constexpr (REG == kVar) {
+      d = cvx * (gx * gx - 2.f * mu_x * gx) + cvy * (gy * gy - 2.f * mu_y * gy);
+    }
+    const float u = gcx * gx + gcy * gy + gr * d;
+    e[k] = z;
+    v[k] = u;
+    dot += z * u;
+  }
+
+  // Barrier 2: <z, u>; then dh = z (u - <z, u>), four float4 a thread.
+  dot = combine_sum(dot, red);
+  float4* out = reinterpret_cast<float4*>(dh + row * hw);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = 4 * k;
+    out[threadIdx.x + kThreads * k] =
+        make_float4(e[i] * (v[i] - dot), e[i + 1] * (v[i + 1] - dot),
+                    e[i + 2] * (v[i + 2] - dot), e[i + 3] * (v[i + 3] - dot));
+  }
+}
+
+// The layout of the backward for every map but an aligned 64x64 one.
+struct StagedRow {};
+
+// Backward, one 256-thread block per row, in layout L (Map64 or StagedRow).
+// REG is the regularizer whose derivative enters u (kNone when the caller
+// has no reg cotangent); g_reg is read only then.
+template <int REG, bool THRESH, class L>
+__global__ void __launch_bounds__(kThreads)
+dsnt_head_bwd_kernel(const float* __restrict__ raw,
+                     const float* __restrict__ targets,
+                     const float* __restrict__ g_coords,
+                     const float* __restrict__ g_reg, float* __restrict__ dh,
+                     int h, int w, float threshold, float inv_sx,
+                     float inv_sy, float tvx, float tvy) {
+  if constexpr (std::is_same_v<L, Map64>) {
+    bwd_row_map64<REG, THRESH>(raw, targets, g_coords, g_reg, dh, threshold,
+                               inv_sx, inv_sy, tvx, tvy);
+  } else {
+    bwd_row_staged<REG, THRESH>(raw, targets, g_coords, g_reg, dh, h, w,
+                                threshold, inv_sx, inv_sy, tvx, tvy);
+  }
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch_rows(Kernel kernel, int n, size_t smem, cudaStream_t stream,
                         Args... args) {
@@ -627,16 +826,26 @@ cudaError_t dispatch(int reg_kind, int thresholded, F f) {
   }
 }
 
+// Dynamic shared memory of the row-in-registers kernels: the Gaussian's
+// factors and their logs (js/kl/mse).
+template <int REG>
+size_t gauss_smem(int h, int w) {
+  return uses_gauss<REG>() ? 2 * static_cast<size_t>(h + w) * sizeof(float)
+                           : 0;
+}
+
 template <int REG, bool THRESH, class L>
 cudaError_t launch_fwd(const float* raw, const float* targets, float* coords,
                        float* reg_out, int n, int h, int w, float threshold,
                        float inv_sx, float inv_sy, float tvx, float tvy,
                        cudaStream_t stream) {
-  const size_t smem =
-      uses_gauss<REG>() ? 2 * static_cast<size_t>(h + w) * sizeof(float) : 0;
-  return launch_rows(dsnt_head_fwd_kernel<REG, THRESH, L>, n, smem, stream,
-                     raw, targets, coords, reg_out, h, w, threshold, inv_sx,
-                     inv_sy, tvx, tvy);
+  return launch_rows(dsnt_head_fwd_kernel<REG, THRESH, L>, n,
+                     gauss_smem<REG>(h, w), stream, raw, targets, coords,
+                     reg_out, h, w, threshold, inv_sx, inv_sy, tvx, tvy);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 // 64x64 rows at a 16-byte aligned base take Map64, every other map (up to
@@ -645,8 +854,7 @@ cudaError_t fwd(const float* raw, const float* targets, float* coords,
                 float* reg_out, int n, int h, int w, int reg_kind,
                 int thresholded, float threshold, float inv_sx, float inv_sy,
                 float tvx, float tvy, cudaStream_t stream) {
-  const bool map64 = h == 64 && w == 64 &&
-                     (reinterpret_cast<std::uintptr_t>(raw) & 15) == 0;
+  const bool map64 = h == 64 && w == 64 && aligned16(raw);
   return dispatch(reg_kind, thresholded, [&](auto reg, auto thresh) {
     constexpr int REG = decltype(reg)::value;
     constexpr bool TH = decltype(thresh)::value;
@@ -661,16 +869,27 @@ cudaError_t fwd(const float* raw, const float* targets, float* coords,
   });
 }
 
+// 64x64 rows whose raw and dh both start 16-byte aligned take Map64 (the
+// row in registers), every other map StagedRow (the row in 2 * H * W floats
+// of shared memory).
 cudaError_t bwd(const float* raw, const float* targets, const float* g_coords,
                 const float* g_reg, float* dh, int n, int h, int w,
                 int reg_kind, int thresholded, float threshold, float inv_sx,
                 float inv_sy, float tvx, float tvy, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(h) * w * sizeof(float) * 2;
+  const bool map64 = h == 64 && w == 64 && aligned16(raw) && aligned16(dh);
   return dispatch(reg_kind, thresholded, [&](auto reg, auto thresh) {
-    return launch_rows(
-        dsnt_head_bwd_kernel<decltype(reg)::value, decltype(thresh)::value>, n,
-        smem, stream, raw, targets, g_coords, g_reg, dh, h, w, threshold,
-        inv_sx, inv_sy, tvx, tvy);
+    constexpr int REG = decltype(reg)::value;
+    constexpr bool TH = decltype(thresh)::value;
+    if (map64) {
+      return launch_rows(dsnt_head_bwd_kernel<REG, TH, Map64>, n,
+                         gauss_smem<REG>(h, w), stream, raw, targets,
+                         g_coords, g_reg, dh, h, w, threshold, inv_sx, inv_sy,
+                         tvx, tvy);
+    }
+    return launch_rows(dsnt_head_bwd_kernel<REG, TH, StagedRow>, n,
+                       static_cast<size_t>(h) * w * sizeof(float) * 2, stream,
+                       raw, targets, g_coords, g_reg, dh, h, w, threshold,
+                       inv_sx, inv_sy, tvx, tvy);
   });
 }
 

@@ -27,9 +27,11 @@ EPS = 1e-24
 WARPS, THREADS = 8, 256
 
 
-def kernel_forward(raw, t, sigma_px, reg, preact, threshold, guard=True):
+def kernel_forward(raw, t, sigma_px, reg, preact, threshold, guard=True,
+                   log_z_guard=True):
     """``(coords, reg)`` as the forward kernel computes them, for ``(n, h, w)``
-    fp32 heatmaps; ``guard=False`` takes ``log sum G`` unguarded."""
+    fp32 heatmaps; ``guard=False`` takes ``log sum G`` unguarded, and
+    ``log_z_guard=False`` takes ``log z`` from the logit where z is 0 too."""
     n, h, w = raw.shape
     hw = h * w
     v = raw.reshape(n, hw)
@@ -68,7 +70,7 @@ def kernel_forward(raw, t, sigma_px, reg, preact, threshold, guard=True):
     sum_g = f[0].sum(1, keepdim=True) * f[1].sum(1, keepdim=True)
     sg = sum_g.clamp_min(EPS)
     gn = f[0][:, i % w] * (1.0 / sg) * f[1][:, i // w]
-    lz = (v - m) - torch.log(s)[:, None]
+    lz = log_z(v, m, s, z, log_z_guard)
     lg = lf[0][:, i % w] + lf[1][:, i // w] - torch.log(sg if guard else sum_g)
     if reg == "js":
         lm = torch.log(0.5 * (z + gn) + EPS)
@@ -79,6 +81,13 @@ def kernel_forward(raw, t, sigma_px, reg, preact, threshold, guard=True):
         lgn = torch.where(gn == 0, math.log(EPS), torch.log(gn + EPS))
         return coords, (z * (lz - lgn)).sum(1)
     return coords, ((z - gn) ** 2).sum(1) / hw
+
+
+def log_z(v, m, s, z, guard=True):
+    """log z from the logits, ``(v - m) - log s``; 0 where z is 0 (the
+    kernels' ``log_z``), which a -inf logit would otherwise make -inf."""
+    lz = (v - m) - torch.log(s)[:, None]
+    return torch.where(z == 0, 0.0, lz) if guard else lz
 
 
 def adversarial_rows(n, h, w, seed):
@@ -94,6 +103,8 @@ def adversarial_rows(n, h, w, seed):
     t[3] = (40.0, -35.0)             # sum G underflows, every gn is 0
     t[4] = (3.0, 0.0)                # sum G below eps
     t[5] = (1.32, 1.32)              # sum G underflows, the corner's gn > 0
+    raw[6, [5, -1]] = -np.inf        # z = 0 from -inf logits, one at the target
+    t[6] = ((2 * 5 + 1) / w - 1, 1 / h - 1)
     return (torch.from_numpy(raw.reshape(n, h, w)), torch.from_numpy(t))
 
 
@@ -131,3 +142,15 @@ def test_unguarded_log_of_gauss_sum_is_not_finite():
     _, unguarded = kernel_forward(raw, t, 1.0, "js", "softmax", 0.5, guard=False)
     assert torch.isfinite(guarded).all()
     assert not torch.isfinite(unguarded[5])
+
+
+@pytest.mark.parametrize("reg", ["js", "kl"])
+def test_log_z_of_a_minus_inf_logit_needs_its_guard(reg):
+    # Row 6 holds -inf logits: z = 0 there, and z * ((v - m) - log s) is
+    # 0 * (-inf) = NaN unless log z is taken as 0 where z is 0.
+    raw, t = adversarial_rows(12, 64, 64, seed=11)
+    _, guarded = kernel_forward(raw, t, 1.0, reg, "softmax", 0.5)
+    _, unguarded = kernel_forward(raw, t, 1.0, reg, "softmax", 0.5,
+                                  log_z_guard=False)
+    assert torch.isfinite(guarded).all()
+    assert torch.isnan(unguarded[6])

@@ -24,6 +24,7 @@ import torch
 
 from dsnt_pose2d_tpu_torch.ops.cuda import (MAX_HW, PREACT_KINDS, REG_KINDS, calib,
                                             fused_dsnt_head,
+                                            fused_dsnt_head_bwd,
                                             fused_dsnt_head_bwd_reference,
                                             fused_dsnt_head_reference,
                                             launch_counts, reset_launch_counts,
@@ -210,7 +211,8 @@ def test_row_shift_kernel_unaligned_rows(cuda):
 def _adversarial_heads(n, h, w, seed, device):
     """Rows where the kernel's rewritten arithmetic could part from the plain
     version: z underflowing (one-hot), every logit below the threshold, and
-    targets so far off the grid that the Gaussian's sum underflows."""
+    targets so far off the grid that the Gaussian's sum underflows, and
+    -inf logits."""
     rng = np.random.default_rng(seed)
     raw = (rng.normal(size=(n, h * w)) * 3).astype(np.float32)
     raw[0] = -50.0
@@ -222,8 +224,31 @@ def _adversarial_heads(n, h, w, seed, device):
     t[3] = (40.0, -35.0)             # sum G underflows, every gn is 0
     t[4] = (3.0, 0.0)                # sum G below eps
     t[5] = (1.32, 1.32)              # sum G underflows, the corner's gn > 0
+    raw[6, [5, -1]] = -np.inf        # z = 0 from -inf logits, one at the target
+    t[6] = ((2 * 5 + 1) / w - 1, 1 / h - 1)
     return (torch.from_numpy(raw.reshape(n, h, w)).to(device),
             torch.from_numpy(t).to(device))
+
+
+ADVERSARIAL_CASES = ["64x64", "64x64_unaligned", "7x9", "max_hw"]
+
+
+def _adversarial_case(case, device):
+    """The adversarial rows in the map and alignment of ``case``."""
+    h, w = {"64x64": (64, 64), "64x64_unaligned": (64, 64), "7x9": (7, 9),
+            "max_hw": (128, MAX_HW // 128)}[case]
+    raw, t = _adversarial_heads(21, h, w, 11, device)
+    if case == "64x64_unaligned":
+        flat = torch.empty(raw.numel() + 1, device=device)
+        flat[1:].copy_(raw.reshape(-1))
+        raw = flat[1:].view(raw.shape)
+    return raw, t
+
+
+def _assert_dh_close(got, exp):
+    assert torch.isfinite(got).all()
+    atol = max(2e-6, 5e-6 * exp.abs().max().item())
+    torch.testing.assert_close(got, exp, atol=atol, rtol=1e-4)
 
 
 # The 64x64 layout, 64x64 at a base off the 16-byte grid, a small and a
@@ -231,15 +256,9 @@ def _adversarial_heads(n, h, w, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
-@pytest.mark.parametrize("case", ["64x64", "64x64_unaligned", "7x9", "max_hw"])
+@pytest.mark.parametrize("case", ADVERSARIAL_CASES)
 def test_head_kernel_adversarial_rows(cuda, case, reg, preact):
-    h, w = {"64x64": (64, 64), "64x64_unaligned": (64, 64), "7x9": (7, 9),
-            "max_hw": (128, MAX_HW // 128)}[case]
-    raw, t = _adversarial_heads(21, h, w, 11, cuda)
-    if case == "64x64_unaligned":
-        flat = torch.empty(raw.numel() + 1, device=cuda)
-        flat[1:].copy_(raw.reshape(-1))
-        raw = flat[1:].view(raw.shape)
+    raw, t = _adversarial_case(case, cuda)
     kw = dict(sigma_px=1.0, reg=reg, preact=preact, threshold=0.5)
     got_c, got_r = fused_dsnt_head(raw, t, **kw)
     exp_c, exp_r = fused_dsnt_head_reference(raw, t, **kw)
@@ -251,13 +270,72 @@ def test_head_kernel_adversarial_rows(cuda, case, reg, preact):
         torch.testing.assert_close(got_r, exp_r, rtol=1e-5, atol=1e-5)
 
 
+# The backward on the same rows: Map64 takes the aligned 64x64 case, the
+# staged-row layout the others.
+@pytest.mark.cuda
+@pytest.mark.parametrize("preact", PREACT_KINDS)
+@pytest.mark.parametrize("reg", REG_KINDS)
+@pytest.mark.parametrize("case", ADVERSARIAL_CASES)
+def test_head_bwd_kernel_adversarial_rows(cuda, case, reg, preact):
+    raw, t = _adversarial_case(case, cuda)
+    g = torch.Generator().manual_seed(3)
+    gc = torch.randn((raw.shape[0], 2), generator=g).to(cuda)
+    gr = torch.randn((raw.shape[0],), generator=g).to(cuda)
+    gr = None if reg == "none" else gr
+    kw = dict(sigma_px=1.0, reg=reg, preact=preact, threshold=0.5)
+    reset_launch_counts()
+    got = fused_dsnt_head_bwd(raw, t, gc, gr, **kw)
+    assert launch_counts()["dsnt_head_bwd"] == 1
+    exp = fused_dsnt_head_bwd_reference(raw, t, gc, gr, **kw)
+    torch.cuda.synchronize()
+    _assert_dh_close(got, exp)
+
+
+# Targets off the grid at sigma 0.7 px: rows whose sum G < 1 take the
+# contract's form of the Gaussian in the 64x64 layout.
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", ["js", "kl", "mse"])
+def test_head_bwd_kernel_off_grid_targets(cuda, reg):
+    g = torch.Generator().manual_seed(5)
+    raw = (torch.randn((256, 64, 64), generator=g) * 3.0).to(cuda)
+    t = (torch.rand((256, 2), generator=g) * 2.4 - 1.2).to(cuda)
+    gc = torch.randn((256, 2), generator=g).to(cuda)
+    gr = torch.randn((256,), generator=g).to(cuda)
+    got = fused_dsnt_head_bwd(raw, t, gc, gr, sigma_px=0.7, reg=reg)
+    exp = fused_dsnt_head_bwd_reference(raw, t, gc, gr, sigma_px=0.7, reg=reg)
+    torch.cuda.synchronize()
+    _assert_dh_close(got, exp)
+
+
+# Sums in a fixed order: two launches on the same inputs give the same bits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", REG_KINDS)
+@pytest.mark.parametrize("shape", [(1024, 64, 64), (300, 7, 9)])
+def test_head_bwd_kernel_deterministic(cuda, shape, reg):
+    raw, t = _heads(shape, 41, cuda)
+    g = torch.Generator().manual_seed(4)
+    gc = torch.randn((shape[0], 2), generator=g).to(cuda)
+    gr = None if reg == "none" else torch.randn((shape[0],), generator=g).to(cuda)
+    kw = dict(sigma_px=1.0, reg=reg, preact="thresholded_softmax", threshold=0.5)
+    first = fused_dsnt_head_bwd(raw, t, gc, gr, **kw)
+    second = fused_dsnt_head_bwd(raw, t, gc, gr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 CALIB_TOL = {"copy": None, "exp": dict(rtol=1e-6, atol=0.0),
              "smax": dict(rtol=2e-6, atol=1e-9)}
 
 
+# The bench's shape, a row count that is no multiple of a block's rows, and
+# arrays whose last block is ragged in exp's blocks of 256 float4 and the
+# copy's of 1024 (6, 257 and 9509 float4).
+CALIB_SHAPES = [(8192, 4096), (130, 4096), (37, 1028), (3, 8), (1, 1028)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(CALIB_TOL))
-@pytest.mark.parametrize("shape", [(8192, 4096), (130, 4096), (37, 1028)])
+@pytest.mark.parametrize("shape", CALIB_SHAPES)
 def test_calib_kernel_matches_plain(cuda, shape, kind):
     rng = np.random.default_rng(shape[0])
     x = torch.from_numpy((rng.normal(size=shape) * 3).astype(np.float32)).to(cuda)
