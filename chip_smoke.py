@@ -13,7 +13,11 @@ regularizer, shear warp with rotation, RMSProp) at batch 32 on 384-px
 synthetic canvases, and times the kernels and the steps.  Then it drives
 the port's bench entry points at small counts (``bench.kernel``'s rooflines
 with the calibration kernels, and ``bench.step``'s device step and
-streaming and resident epochs at batch 32).
+streaming and resident epochs at batch 32), and last the port's Trainer on
+the same config: two epochs of resident k=4 training with the resident eval
+scan, checkpoints and metric records, a resume from its mid-epoch
+checkpoint held bitwise against the uninterrupted run, and the streaming
+eval pass held against the resident one.
 
 Run from the root of a checkout, with no arguments:
 
@@ -32,6 +36,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -39,6 +44,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -89,6 +95,16 @@ CALIB_SHAPES = ((8192, 4096), (130, 4096), (37, 1028))
 # The bench phase: bench.step at the smoke's batch and small counts.
 BENCH_KW = {"iters": 5, "repeats": 3}
 E2E_KW = {"repeats": 2, "epoch_steps": 8}
+# The trainer phase: 256 train rows are 8 steps (2 dispatch groups of 4) an
+# epoch; 80 val rows are 3 eval steps, the last with 16 pad rows.
+TRAINER_ROWS = {"train": 256, "val": 80}
+TRAINER_EPOCHS = 2
+TRAINER_CKPT_EVERY_STEPS = 4
+# The streaming eval pass against the resident scan on the same weights:
+# the same rows in the same batches (pads repeat the last row, masked), so
+# the counts are equal; the loss is the mean of 3 per-batch losses, in fp64
+# on the streaming side and fp32 on the scan's.
+TRAINER_EVAL_LOSS_RTOL = 1e-5
 
 
 def emit(phase: str, **fields):
@@ -375,9 +391,31 @@ def phase_row_shift_vs_plain(recorded):
                         f"row_shift {path} {shape} differs from its plain "
                         f"version: max {(got - exp).abs().max().item()}")
             checked.setdefault(path, []).append(list(shape))
+    legacy = row_shift_legacy_vs_plain(recorded)
     emit("row_shift_vs_plain", bitwise_equal=True, shapes=checked,
-         inputs=["main path", "random"], max_abs_err=0.0)
-    return 0.0
+         inputs=["main path", "random"], max_abs_err=0.0, legacy=legacy)
+    return 0.0, legacy
+
+
+def row_shift_legacy_vs_plain(recorded):
+    """One call with ``impl="legacy"`` (the JAX package's ``_kernel_legacy``,
+    which the paths do not use) on the first train call's inputs, held
+    bitwise against its plain version; its launches are counted apart."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import (row_shift, shift_rows,
+                                                shift_rows_reference)
+
+    shape, (rows, starts, fracs, out, stride) = next(iter(recorded["train"].items()))
+    before = row_shift.launches
+    got = shift_rows(rows, starts, fracs, out, stride=stride, impl="legacy")
+    launches = row_shift.launches - before
+    exp = shift_rows_reference(rows, starts, fracs, out, stride=stride,
+                               impl="legacy")
+    torch.cuda.synchronize()
+    if launches != 1 or not torch.equal(got, exp):
+        raise AssertionError(
+            f"row_shift impl='legacy' {shape}: {launches} launches, max diff "
+            f"{(got - exp).abs().max().item()} from its plain version")
+    return {"shape": list(shape), "launches": launches, "max_abs_err": 0.0}
 
 
 @contextlib.contextmanager
@@ -888,6 +926,7 @@ def phase_train(dev, card):
     instances = profile_step("train_step", lambda: train_step(batch), step_ms[0],
                              card)
     return {"cfg": cfg, "batch": batch, "pre_args": pre_args, "launches": launches,
+            "train_img_per_s": BATCH / step_ms[0] * 1e3,
             "profile_instances": instances,
             "row_shift_calls": row_shift_calls,
             "heat": grab["heat"][0], "dheat": dheat, "model": model}
@@ -1093,6 +1132,250 @@ def phase_bench(card):
     return launches
 
 
+def synthetic_split(rows, seed):
+    """``rows`` synthetic samples at CANVAS px from ``data/synthetic.py``,
+    made 16 rows at a time on a thread pool (chunk ``c`` from seed
+    ``seed * 1000 + c``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+
+    chunks = [(min(16, rows - i), seed * 1000 + i // 16) for i in range(0, rows, 16)]
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(lambda c: make_synthetic_mpii(c[0], CANVAS, seed=c[1]),
+                              chunks))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def trainer_config():
+    """The flagship config as ``Trainer.run`` takes it, nothing cut but the
+    number of epochs; eval every epoch, a step checkpoint every 4 steps."""
+    import dataclasses
+
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    cfg = config_from_json(CONFIG.read_text())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=TRAINER_EPOCHS, eval_every_epochs=1,
+        checkpoint_every_epochs=1,
+        checkpoint_every_steps=TRAINER_CKPT_EVERY_STEPS))
+    m, o, t = cfg.model, cfg.optim, cfg.train
+    assert (m.base, m.hg_features, m.resolved_input_size, m.dtype, m.reg,
+            m.hm_sigma, m.use_pallas) == ("hg8", 256, 256, "bfloat16", "js",
+                                          1.0, True), m
+    assert (o.optimizer, o.lr, o.schedule) == ("rmsprop", 2.5e-4, "step"), o
+    assert (t.batch_size, t.steps_per_dispatch) == (BATCH, 4), t
+    assert cfg.data.device_resident == "auto", cfg.data
+    return cfg
+
+
+def build_trainer(cfg, dev, out_dir, splits):
+    from dsnt_pose2d_tpu_torch.data.loader import ShardedLoader
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.train.checkpoint import CheckpointManager
+    from dsnt_pose2d_tpu_torch.train.loop import Trainer
+    from dsnt_pose2d_tpu_torch.train.metrics import MetricWriter
+
+    return Trainer(
+        model=build_pose_model(cfg.model, device=dev, seed=0), cfg=cfg,
+        train_loader=ShardedLoader(splits["train"], BATCH, shuffle=True,
+                                   seed=cfg.train.seed),
+        val_loader=ShardedLoader(splits["val"], BATCH, shuffle=False,
+                                 drop_last=False),
+        checkpointer=CheckpointManager(str(out_dir), cfg),
+        metric_writer=MetricWriter(str(out_dir), echo=False), device=dev)
+
+
+def trained_state(state) -> dict:
+    """The parameters, BN statistics and optimizer state of ``state``, on
+    the host, with its step, count and learning rate."""
+    from dsnt_pose2d_tpu_torch.train.checkpoint import state_payload
+
+    opt = state.optimizer.optimizer
+    return {**state_payload(state), "lr": opt.param_groups[0]["lr"]}
+
+
+def state_diffs(a: dict, b: dict) -> dict:
+    """Tensors of two :func:`trained_state` dicts that are not bitwise
+    equal, with their largest difference."""
+    diffs = {}
+    for k, v in a["model"].items():
+        if not torch.equal(v, b["model"][k]):
+            diffs[f"model.{k}"] = (v.double() - b["model"][k].double()).abs().max().item()
+    for i, st in a["optimizer"]["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v, b["optimizer"]["state"][i][k]):
+                diffs[f"optimizer.{i}.{k}"] = (
+                    v.double() - b["optimizer"]["state"][i][k].double()).abs().max().item()
+    return diffs
+
+
+def steps_ms(fn, n=4):
+    """Host-clock ms per call of ``fn`` over ``n`` calls that end in a
+    synchronize, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_trainer(dev, card, device_step_img_per_s):
+    """``Trainer.run`` on the flagship config: run A (2 epochs, counted),
+    then run B from run A's mid-epoch checkpoint, held bitwise against run
+    A, then the streaming eval pass against the resident scan."""
+    import shutil
+    import tempfile
+
+    from dsnt_pose2d_tpu_torch.data.loader import ShardedLoader
+    from dsnt_pose2d_tpu_torch.data.mpii import ArrayDataset
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.checkpoint import STATE_FILENAME
+    from dsnt_pose2d_tpu_torch.train.loop import run_evaluation
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = trainer_config()
+    t0 = time.time()
+    splits = {name: ArrayDataset(synthetic_split(rows, seed=i + 1))
+              for i, (name, rows) in enumerate(TRAINER_ROWS.items())}
+    data_s = time.time() - t0
+    spe = TRAINER_ROWS["train"] // BATCH
+    eval_steps = -(-TRAINER_ROWS["val"] // BATCH)
+    steps = TRAINER_EPOCHS * spe
+    cudnn = torch.backends.cudnn
+    saved_flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="dsnt_trainer_") as tmp:
+            tmp = Path(tmp)
+            trainer = build_trainer(cfg, dev, tmp / "a", splits)
+            assert trainer.resident is not None and trainer.val_resident is not None
+            assert trainer.resident_multi is not None
+            assert (trainer.resident.steps_per_epoch,
+                    trainer.val_resident.steps_per_epoch) == (spe, eval_steps)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            state, best = trainer.run()
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            expected = {**dict.fromkeys(launches, 0),
+                        "dsnt_head_fwd": steps + 2 * TRAINER_EPOCHS * eval_steps,
+                        "dsnt_head_bwd": steps,
+                        "row_shift": 2 * (steps + TRAINER_EPOCHS * eval_steps)}
+            if launches != expected:
+                raise AssertionError(f"trainer launches {launches}, expected {expected}")
+            assert state.step == state.optimizer.count == steps, (
+                state.step, state.optimizer.count)
+            run_a = trained_state(state)
+            out_a = tmp / "a"
+            with open(out_a / "metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            summaries = [r for r in records if "step" not in r]
+            step_records = [(r["epoch"], r["step"]) for r in records if "step" in r]
+            assert [r["epoch"] for r in summaries] == list(range(TRAINER_EPOCHS))
+            for r in summaries:
+                assert math.isfinite(r["train_loss"]) and 0.0 <= r["val_pckh"] <= 1.0, r
+            # One record per multi-step dispatch whose index is a multiple
+            # of log_every_steps // k (the flagship's 20 // 4: the first of
+            # each epoch), with the global step after it.
+            k = cfg.train.steps_per_dispatch
+            every = max(1, cfg.train.log_every_steps // k)
+            assert step_records == [(e, e * spe + (d + 1) * k)
+                                    for e in range(TRAINER_EPOCHS)
+                                    for d in range(0, spe // k, every)], step_records
+            saved = {d: sorted(os.listdir(out_a / d), key=int)
+                     for d in ("ckpt", "ckpt_best", "ckpt_step")}
+            assert saved["ckpt"] == [str(e) for e in range(TRAINER_EPOCHS)], saved
+            assert saved["ckpt_step"] == ["4", "12"] and len(saved["ckpt_best"]) == 1, saved
+            assert (out_a / "best.json").exists()
+            samples = sorted(os.listdir(out_a / "samples"))
+            assert samples == [f"epoch{e:04d}_s{i}.png" for e in range(TRAINER_EPOCHS)
+                               for i in range(4)], samples
+            ckpt_bytes = os.path.getsize(out_a / "ckpt" / "1" / STATE_FILENAME)
+            del trainer, state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # Run B: a fresh Trainer resumes from run A's mid-epoch save
+            # (epoch 1, step_in_epoch 4), restored in place.
+            out_b = tmp / "b"
+            shutil.copytree(out_a / "ckpt_step" / "12", out_b / "ckpt_step" / "12")
+            trainer = build_trainer(cfg, dev, out_b, splits)
+            restored, meta = trainer.checkpointer.restore_latest(trainer.init_state())
+            assert (meta["epoch"], meta["step_in_epoch"], restored.step) == (1, 4, 12), meta
+            t0 = time.time()
+            state, _ = trainer.run(restored, start_epoch=meta["epoch"],
+                                   start_step=meta["step_in_epoch"],
+                                   best_pckh=summaries[0]["val_pckh"])
+            torch.cuda.synchronize()
+            resume_s = time.time() - t0
+            run_b = trained_state(state)
+            diffs = state_diffs(run_a, run_b)
+            same = {k: run_a[k] == run_b[k] for k in ("step", "count", "lr")}
+            if diffs or not all(same.values()):
+                raise AssertionError(
+                    f"resumed run differs from the uninterrupted one: {same}, "
+                    f"{len(diffs)} tensors, largest {sorted(diffs.items(), key=lambda kv: -kv[1])[:5]}")
+
+            # The streaming eval pass against the resident scan, same weights.
+            scan = trainer.evaluate()
+            streamed = run_evaluation(
+                trainer.eval_step, dev,
+                ShardedLoader(splits["val"], BATCH, shuffle=False, drop_last=False),
+                cfg.model.num_joints)
+            counts_equal = all(np.array_equal(getattr(scan["evaluator"], k),
+                                              getattr(streamed["evaluator"], k))
+                               for k in ("correct", "total"))
+            loss_rel = abs(streamed["loss"] - scan["loss"]) / abs(scan["loss"])
+            if not counts_equal or loss_rel > TRAINER_EVAL_LOSS_RTOL:
+                raise AssertionError(
+                    f"streaming eval vs resident scan: counts equal {counts_equal}, "
+                    f"loss rel {loss_rel}")
+
+            # What the phase's determinism costs: the Trainer's resident
+            # single step with cuDNN's deterministic algorithms and with its
+            # default ones, in turns (host clock over synchronised steps).
+            res, idx = trainer.resident.resident, next(trainer.resident.epoch(0))
+            det_ms = {"deterministic": [], "default": []}
+            for det in (True, False, True, False):
+                cudnn.deterministic = det
+                det_ms["deterministic" if det else "default"].append(
+                    steps_ms(lambda: trainer.resident_step(res, idx)))
+            cudnn.deterministic = True
+            del trainer, state, restored
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved_flags
+    ips = [r["images_per_sec"] for r in summaries]
+    emit("trainer", card=card, config=str(CONFIG.relative_to(ROOT)), batch=BATCH,
+         canvas=CANVAS, rows=TRAINER_ROWS, epochs=TRAINER_EPOCHS,
+         steps_per_dispatch=cfg.train.steps_per_dispatch, resident=True,
+         cudnn_deterministic=True, launches=launches,
+         epoch_images_per_sec=ips, device_step_images_per_sec=device_step_img_per_s,
+         epoch_vs_device_step=[v / device_step_img_per_s for v in ips],
+         epoch_seconds=[r["epoch_seconds"] for r in summaries],
+         eval_seconds=[r["eval_seconds"] for r in summaries],
+         ckpt_seconds=[r["ckpt_seconds"] for r in summaries],
+         checkpoint_bytes=ckpt_bytes, peak_mem_bytes=peak, run_seconds=run_s,
+         data_seconds=data_s, summaries=summaries, saved=saved, best_pckh=best,
+         resume={"from": meta, "seconds": resume_s, "bitwise_equal": True,
+                 "tensors": len(run_a["model"]) + sum(
+                     len(st) for st in run_a["optimizer"]["state"].values()),
+                 **same},
+         resident_step_ms_in_turns=det_ms,
+         eval_agreement={"pckh_counts_equal": True, "loss_rel_diff": loss_rel,
+                         "scan_loss": scan["loss"], "streamed_loss": streamed["loss"],
+                         "pckh": scan["pckh"], "loss_rtol": TRAINER_EVAL_LOSS_RTOL},
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return launches
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -1114,11 +1397,12 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
     train_launches = train["launches"]
+    train_img_per_s = train["train_img_per_s"]
     recorded["train"] = train["row_shift_calls"]
     bwd = phase_head_bwd_on_main_path(train, card)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
     emit("dsnt_head_bwd_times", card=card, **bwd)
-    shift_err = phase_row_shift_vs_plain(recorded)
+    shift_err, shift_legacy = phase_row_shift_vs_plain(recorded)
     shift, shift_lib_err = phase_row_shift_timing(recorded, ceiling)
     emit("row_shift_times", card=card, by_path=shift, library_err=shift_lib_err,
          ceiling_GB_per_s=ceiling)
@@ -1127,8 +1411,9 @@ def main():
     bench_launches = phase_kernel_bench(card)
     for name, n in phase_bench(card).items():
         bench_launches[name] += n
+    trainer_launches = phase_trainer(dev, card, train_img_per_s)
     paths = {"serve": serve_launches, "train": train_launches,
-             "bench": bench_launches}
+             "bench": bench_launches, "trainer": trainer_launches}
 
     def launches(name):
         by_path = {p: counts[name] for p, counts in paths.items()}
@@ -1161,6 +1446,7 @@ def main():
          **launches("row_shift"), "max_abs_err": shift_err,
          **{k: shift["serve"][k] for k in keys},
          "by_path": {p: {k: v[k] for k in keys} for p, v in shift.items()},
+         "legacy_check": shift_legacy,
          "frac_of_ceiling": frac_of_ceiling(shift_bytes, shift["serve"]["ms"])},
     ]
     for kind, line in (("copy", 247), ("exp", 250), ("smax", 253)):

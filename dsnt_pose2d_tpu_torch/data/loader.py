@@ -7,7 +7,8 @@
 - **fetch**: a thread pool of ``workers`` reads the samples (mmap reads and
   native decode release the GIL) and one background thread keeps a bounded
   queue of collated numpy batches;
-- **to the card**: :func:`prefetch_to_device` pins each batch in the
+- **to the card**: :func:`prefetch_to_device` (and :func:`prefetch_pairs`,
+  which keeps the host batch beside the device one) pins each batch in the
   consumer's thread and starts its ``non_blocking`` copy ``depth`` batches
   ahead of the step that reads it.
 """
@@ -63,7 +64,14 @@ def prefetch_to_device(batch_iter, device, depth: int = 2):
     overlaps the steps that run before it is taken.  At most ``depth + 1``
     batches are held in pinned host memory at once.
     """
-    return stage_ahead((to_device(b, device) for b in batch_iter), depth)
+    return (dev for _, dev in prefetch_pairs(batch_iter, device, depth))
+
+
+def prefetch_pairs(batch_iter, device, depth: int = 2):
+    """Like :func:`prefetch_to_device` but yields ``(host, device)`` pairs:
+    the eval pass also needs the host batch (sample renders), with the same
+    host-to-device overlap."""
+    return stage_ahead(((b, to_device(b, device)) for b in batch_iter), depth)
 
 
 class ShardedLoader:

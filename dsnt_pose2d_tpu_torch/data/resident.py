@@ -8,8 +8,10 @@ and then only a ``(B,)`` index vector per step.  The per-epoch order is a
 pure function of ``(seed, epoch, shard)``, as in the JAX package; with one
 device the strided shard layout is the identity and there is one shard, so
 :meth:`ResidentTrainData.epoch` and :meth:`~ResidentTrainData.epoch_groups`
-give the JAX package's index arrays on a 1-device mesh.  ``ResidentEvalData``
-is not ported yet.
+give the JAX package's index arrays on a 1-device mesh.
+:class:`ResidentEvalData` stages the val split the same way for the
+Trainer's epoch-end eval pass.  The sharded layout over several devices is
+not ported yet (ROADMAP Queue 1, data parallel).
 """
 
 from __future__ import annotations
@@ -68,6 +70,15 @@ def resident_fits(dataset, device=DEFAULT_DEVICE, extra_nbytes: int = 0) -> bool
     return resident_nbytes(dataset) + extra_nbytes <= resident_budget_bytes(device)
 
 
+def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device``, without waiting for the device:
+    for a card, the copy is ``non_blocking`` from pinned memory."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 class ResidentTrainData:
     """Epoch-index iterator + device-resident arrays for the train loop.
 
@@ -111,7 +122,7 @@ class ResidentTrainData:
         return out
 
     def _put_idx(self, host_idx: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(host_idx)).to(self.device)
+        return _put(host_idx, self.device)
 
     def epoch(self, epoch: int, start_step: int = 0):
         """Yield per-step ``(B,)`` device index vectors."""
@@ -139,3 +150,69 @@ class ResidentTrainData:
                 for i in range(take):
                     yield "single", self._put_idx(block[i])
             step += take
+
+
+class ResidentEvalData:
+    """Device-resident val split + a sequential index stream covering it.
+
+    Every dataset row is evaluated exactly once, as with the streaming
+    loader's ``drop_last=False``: the ragged last batch is padded by
+    repeating the last row, and each step carries a ``(B,)`` ``valid``
+    vector beside its ``(B,)`` row indices, which the resident eval step
+    multiplies into the joint mask, so that pad rows count in neither the
+    masked loss nor the PCKh counts.  One device: one shard of all rows,
+    as the JAX package's layout on a 1-device mesh.
+    """
+
+    def __init__(self, dataset, batch_size: int, device=DEFAULT_DEVICE):
+        arrays = resident_arrays(dataset)
+        if arrays is None:
+            raise ValueError("dataset is not array-backed; pack it first or "
+                             "use the streaming loader")
+        self.device = resolve_device(device)
+        n = len(dataset)
+        if n < 1:
+            raise ValueError("empty val split")
+        self.num_shards = 1
+        self.shard_batch_size = batch_size
+        self.rows_per_shard = n
+        self.shard_valid = np.array([n])
+        self.steps_per_epoch = -(-n // batch_size)
+        self.resident = {k: torch.from_numpy(np.array(a)).to(self.device)
+                         for k, a in arrays.items()}
+        self.nbytes = sum(a.nbytes for a in arrays.values())
+
+    def _step_host_arrays(self, step: int):
+        """Host ``(idx int32, valid float32)`` of one step, each ``(B,)``."""
+        bs = self.shard_batch_size
+        local = np.arange(step * bs, (step + 1) * bs)
+        idx = np.minimum(local, self.rows_per_shard - 1)
+        idx = np.broadcast_to(idx, (self.num_shards, bs))
+        valid = local[None, :] < self.shard_valid[:, None]
+        return (np.ascontiguousarray(idx).reshape(-1).astype(np.int32),
+                valid.reshape(-1).astype(np.float32))
+
+    def host_rows(self, step: int) -> np.ndarray:
+        """Dataset row of each batch position of one step (pads repeat the
+        last valid row), for host-side sample renders."""
+        bs = self.shard_batch_size
+        local = np.arange(step * bs, (step + 1) * bs)
+        shard = np.repeat(np.arange(self.num_shards), bs)
+        local = np.tile(local, self.num_shards)
+        clamped = np.minimum(local, self.shard_valid[shard] - 1)
+        return (clamped * self.num_shards + shard).astype(np.int64)
+
+    def _put_pair(self, idx: np.ndarray, valid: np.ndarray):
+        return _put(idx.astype(np.int64), self.device), _put(valid, self.device)
+
+    def epoch(self):
+        """Yield per-step device ``(idx, valid)`` pairs covering the split."""
+        for step in range(self.steps_per_epoch):
+            yield self._put_pair(*self._step_host_arrays(step))
+
+    def epoch_stacked(self):
+        """The whole epoch's ``(idx, valid)`` as ``(steps, B)`` device
+        tensors, the input of :func:`..train.loop.make_resident_eval_scan`."""
+        pairs = [self._step_host_arrays(s) for s in range(self.steps_per_epoch)]
+        return self._put_pair(np.stack([p[0] for p in pairs]),
+                              np.stack([p[1] for p in pairs]))

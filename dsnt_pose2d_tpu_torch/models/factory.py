@@ -32,13 +32,15 @@ class PoseNet(nn.Module):
         super().__init__()
         if not cfg.base.startswith("hg"):
             raise NotImplementedError(
-                f"base={cfg.base!r} is not ported yet (ROADMAP Queue 1)")
+                f"base={cfg.base!r} is not ported yet (ROADMAP Queue 1, "
+                "ResNet / ViT)")
         if cfg.output_strat != "dsnt":
             raise NotImplementedError(
-                f"output_strat={cfg.output_strat!r} is not ported yet")
+                f"output_strat={cfg.output_strat!r} is not ported yet "
+                "(ROADMAP Queue 1, the gauss and fc heads)")
         if cfg.remat:
             raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP Queue 1 item 4)")
+                "remat=True is not ported yet (ROADMAP Queue 1, remat)")
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         self.backbone = HourglassNet(
             num_stacks=int(cfg.base[2:]), num_joints=cfg.num_joints,

@@ -22,7 +22,8 @@ from ..utils.config import ModelConfig
 
 def _not_ported(cfg: ModelConfig):
     return NotImplementedError(
-        f"output_strat={cfg.output_strat!r} is not ported yet (ROADMAP Queue 1)")
+        f"output_strat={cfg.output_strat!r} is not ported yet (ROADMAP Queue 1, "
+        "the gauss and fc heads)")
 
 
 def activate_heatmaps(raw: torch.Tensor, preact: str,
@@ -32,7 +33,8 @@ def activate_heatmaps(raw: torch.Tensor, preact: str,
     if preact == "thresholded_softmax":
         return ops.thresholded_softmax(raw, threshold)
     if preact not in ops.HEATMAP_ACTIVATIONS:
-        raise NotImplementedError(f"preact={preact!r} is not ported yet")
+        raise NotImplementedError(f"preact={preact!r} is not ported yet "
+                                  "(ROADMAP Queue 1, the remaining ops)")
     return ops.HEATMAP_ACTIVATIONS[preact](raw)
 
 
@@ -48,7 +50,8 @@ def _reg_losses(act, t, cfg: ModelConfig):
 def _coord_losses(coords, t, cfg: ModelConfig):
     if cfg.coord_loss != "euclidean":
         raise NotImplementedError(
-            f"coord_loss={cfg.coord_loss!r} is not ported yet")
+            f"coord_loss={cfg.coord_loss!r} is not ported yet "
+            "(ROADMAP Queue 1, the remaining ops)")
     return ops.euclidean_losses(coords, t)
 
 

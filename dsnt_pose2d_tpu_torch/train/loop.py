@@ -16,28 +16,47 @@ super-batch (the JAX package's ``lax.scan``; here a Python loop), and
 :func:`make_resident_step` / :func:`make_resident_multi_step` gather each
 batch on the device from a :class:`..data.resident.ResidentTrainData` first.
 Each takes the train step whose state it advances, so that a multi-step and
-a single step (the ragged tail of an epoch) share one optimizer.  Flip and
-multi-scale evaluation and the Trainer are not ported yet.
+a single step (the ragged tail of an epoch) share one optimizer.
+:func:`make_resident_eval_step` and :func:`make_resident_eval_scan` run the
+eval step over a :class:`..data.resident.ResidentEvalData` split.
+
+:class:`Trainer` is the epoch loop: train steps (resident ``k``-step
+dispatch groups or streamed single steps), the eval pass at epoch ends
+(:func:`run_evaluation`, :func:`run_evaluation_resident`,
+:func:`run_evaluation_resident_scan`), checkpoints and metric records.
+Flip and multi-scale evaluation are not ported yet.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..data.augment import preprocess_batch, sample_train_draws
-from ..data.loader import stage_ahead, to_device
+from ..data.loader import prefetch_pairs, prefetch_to_device, stage_ahead, to_device
 from ..data.transforms import invert, transform_coords
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..evaluation.pckh import pckh_batch_counts
+from ..evaluation.pckh import PCKhEvaluator, pckh_batch_counts
 from ..models.factory import PoseModel
 from ..utils.config import Config
-from .state import create_train_state, step_seed
+from ..utils.visualization import render_skeleton, save_png
+from .state import TrainState, create_train_state, step_seed
 
 BATCH_KEYS = ("canvases", "coords_px", "mask", "head_length",
               "canvas_from_orig", "canvas_margin")
+
+# Most dispatches queued ahead of the oldest result not yet read, in the
+# eval passes and in the train loop's metric records: each queued eval step
+# pins its input batch in device memory, and a read right after a dispatch
+# would wait for it.
+_MAX_INFLIGHT = 4
 
 
 def normalized_to_crop_px(coords_norm: torch.Tensor, size: int) -> torch.Tensor:
@@ -67,10 +86,13 @@ def _check_device(model: PoseModel, device) -> torch.device:
 def _check_supported(model: PoseModel, cfg: Config, device) -> torch.device:
     dev = _check_device(model, device)
     if cfg.train.flip_eval:
-        raise NotImplementedError("flip_eval is not ported yet (ROADMAP Queue 1)")
+        raise NotImplementedError(
+            "flip_eval is not ported yet (ROADMAP Queue 1, EvalDriver with "
+            "flip and multi-scale eval)")
     if tuple(float(s) for s in (cfg.train.eval_scales or (1.0,))) != (1.0,):
         raise NotImplementedError(
-            "multi-scale eval is not ported yet (ROADMAP Queue 1)")
+            "multi-scale eval is not ported yet (ROADMAP Queue 1, EvalDriver "
+            "with flip and multi-scale eval)")
     return dev
 
 
@@ -255,3 +277,448 @@ def make_eval_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
                 "pred_orig": pred_orig}
 
     return eval_step
+
+
+def make_resident_eval_step(model: PoseModel, cfg: Config,
+                            device=DEFAULT_DEVICE, eval_step=None):
+    """Eval step over a device-resident val split: ``step(resident, idx,
+    valid)``.  The streaming eval step on the gathered rows, with the
+    ``(B,)`` ``valid`` vector multiplied into the joint mask, so that pad
+    rows count in neither the masked loss nor the PCKh counts."""
+    eval_step = eval_step or make_eval_fn(model, cfg, device)
+
+    def step(resident: dict, idx: torch.Tensor, valid: torch.Tensor) -> dict:
+        batch = _resident_gather(resident, idx)
+        batch["mask"] = batch["mask"] * valid[:, None]
+        return eval_step(batch)
+
+    return step
+
+
+def make_resident_eval_scan(model: PoseModel, cfg: Config,
+                            device=DEFAULT_DEVICE, eval_step=None):
+    """The whole resident eval pass in one call: ``scan(resident, idxs,
+    valids)`` with ``(steps, B)`` ``idxs``/``valids``
+    (:meth:`..data.resident.ResidentEvalData.epoch_stacked`), per-step
+    outputs stacked on a leading axis: those of ``steps`` sequential
+    :func:`make_resident_eval_step` calls, bit for bit (the JAX package's
+    ``lax.scan``; here a loop)."""
+    step = make_resident_eval_step(model, cfg, device, eval_step)
+
+    def scan_eval(resident: dict, idxs: torch.Tensor, valids: torch.Tensor):
+        return _stack_metrics([step(resident, idx, valid)
+                               for idx, valid in zip(idxs, valids)])
+
+    return scan_eval
+
+
+def _dump_samples(sample_dir: str, epoch: int, batch: dict,
+                  pred_orig: np.ndarray, max_n: int = 4):
+    """Render the predicted skeletons over the first few canvases as
+    ``epoch<epoch>_s<i>.png``."""
+    os.makedirs(sample_dir, exist_ok=True)
+    canvases = np.asarray(batch["canvases"])[:max_n]
+    m = torch.from_numpy(np.asarray(batch["canvas_from_orig"], np.float32)[:max_n])
+    mask = np.asarray(batch["mask"])[:max_n]
+    pred = torch.from_numpy(np.asarray(pred_orig, np.float32)[:max_n])
+    pred_canvas = transform_coords(m, pred).numpy()
+    for i, canvas in enumerate(canvases):
+        img = render_skeleton(canvas, pred_canvas[i], mask[i])
+        save_png(img, os.path.join(sample_dir, f"epoch{epoch:04d}_s{i}.png"))
+
+
+def _lagged_eval(outputs, num_joints: int):
+    """Reduce ``(host batch or None, step output)`` pairs as an iterator
+    dispatches them, each output read ``_MAX_INFLIGHT`` dispatches after its
+    own, so that the pass pipelines without queuing more steps than that
+    (each queued step pins its input batch in device memory).  Returns
+    ``({"loss", "pckh", "evaluator"}, first pair)``; ``loss`` is the mean of
+    the per-step losses."""
+    evaluator = PCKhEvaluator(num_joints)
+    losses, first, inflight = [], None, deque()
+
+    def drain(out):
+        evaluator.add_counts(out["pckh_correct"], out["pckh_total"])
+        losses.append(float(out["loss"]))
+
+    for pair in outputs:
+        inflight.append(pair[1])
+        if first is None:
+            first = pair
+        if len(inflight) > _MAX_INFLIGHT:
+            drain(inflight.popleft())
+    while inflight:
+        drain(inflight.popleft())
+    return {"loss": float(np.mean(losses)) if losses else float("nan"),
+            "pckh": evaluator.total_pckh(), "evaluator": evaluator}, first
+
+
+def _resident_sample_batch(res, dataset) -> dict:
+    """The host rows of the resident pass's first step (the pass never
+    builds a host batch), for the sample renders."""
+    from ..data.resident import resident_arrays
+
+    rows = res.host_rows(0)[:4]
+    return {k: np.asarray(a[rows]) for k, a in resident_arrays(dataset).items()}
+
+
+def run_evaluation(eval_step, device, loader, num_joints: int,
+                   sample_dir: str | None = None, epoch: int = 0) -> dict:
+    """One full pass of ``loader`` through an eval step:
+    ``{"loss", "pckh", "evaluator"}``.  Batches are copied to the device
+    ahead of the step that reads them; results are read behind it
+    (:func:`_lagged_eval`)."""
+    result, first = _lagged_eval(
+        ((host, eval_step(dev)) for host, dev in
+         prefetch_pairs(loader.epoch(0), device)), num_joints)
+    if sample_dir and first is not None:
+        _dump_samples(sample_dir, epoch, first[0],
+                      first[1]["pred_orig"].cpu().numpy())
+    return result
+
+
+def run_evaluation_resident(resident_eval_step, res, num_joints: int,
+                            sample_dir: str | None = None, epoch: int = 0,
+                            dataset=None) -> dict:
+    """One full eval pass over a device-resident val split, one dispatch a
+    step (a ``(B,)`` index and valid vector uploaded each), results read
+    behind as in :func:`run_evaluation`."""
+    result, first = _lagged_eval(
+        ((None, resident_eval_step(res.resident, idx, valid))
+         for idx, valid in res.epoch()), num_joints)
+    if sample_dir and first is not None and dataset is not None:
+        _dump_samples(sample_dir, epoch, _resident_sample_batch(res, dataset),
+                      first[1]["pred_orig"].cpu().numpy())
+    return result
+
+
+def run_evaluation_resident_scan(resident_eval_scan, res, num_joints: int,
+                                 sample_dir: str | None = None,
+                                 epoch: int = 0, dataset=None) -> dict:
+    """One full eval pass as one scan call and one read of its stacked
+    results, reduced in the order of :func:`run_evaluation_resident` (its
+    loss is the fp32 mean of the stacked per-step losses, as the JAX
+    package's)."""
+    idxs, valids = res.epoch_stacked()
+    stacked = resident_eval_scan(res.resident, idxs, valids)
+    host = {k: v.cpu().numpy() for k, v in stacked.items()}
+    evaluator = PCKhEvaluator(num_joints)
+    for correct, total in zip(host["pckh_correct"], host["pckh_total"]):
+        evaluator.add_counts(correct, total)
+    if sample_dir and dataset is not None:
+        _dump_samples(sample_dir, epoch, _resident_sample_batch(res, dataset),
+                      host["pred_orig"][0])
+    losses = host["loss"]
+    return {"loss": float(losses.mean()) if losses.size else float("nan"),
+            "pckh": evaluator.total_pckh(), "evaluator": evaluator}
+
+
+class _LaggedLog:
+    """Metric records whose device values are read ``_MAX_INFLIGHT``
+    dispatches after they were queued.
+
+    :meth:`put` starts each value's copy to pinned host memory at once
+    (``non_blocking``) and records a CUDA event behind it; :meth:`drain`
+    waits on that event, never on the whole device, before it writes the
+    record.  No step waits for its own metrics.
+    """
+
+    def __init__(self, writer, device: torch.device):
+        self.writer = writer
+        self.device = device
+        self.pending: deque = deque()
+
+    def put(self, rec: dict, vals: dict):
+        if self.device.type == "cuda":
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in vals.items()}
+            for k, v in vals.items():
+                host[k].copy_(v, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host, ready = vals, None
+        self.pending.append((rec, host, ready))
+        self.drain(_MAX_INFLIGHT)
+
+    def drain(self, limit: int = 0):
+        while len(self.pending) > limit:
+            rec, host, ready = self.pending.popleft()
+            if ready is not None:
+                ready.synchronize()
+            self.writer.write({**rec, **{k: float(v) for k, v in host.items()}})
+
+
+@dataclass
+class Trainer:
+    """The epoch loop: train, eval at epoch ends, checkpoints, metrics.
+
+    The steps carry their state (:class:`.state.TrainState`: the model, the
+    optimizer chain, the step count and the seed).  The Trainer builds its
+    steps once, and the single, multi-step and resident steps share one
+    state, which :meth:`init_state` returns; :meth:`run` trains that object
+    and takes no other (restore a checkpoint into it in place).  A decode
+    backed train set with ``auto_pack``, several hosts and
+    ``pretrained_resnet`` are not ported yet (ROADMAP Queue 1: host data,
+    data parallel, ResNet).
+    """
+
+    model: PoseModel
+    cfg: Config
+    train_loader: Any
+    val_loader: Any = None
+    checkpointer: Any = None          # train.checkpoint.CheckpointManager
+    metric_writer: Any = None         # train.metrics.MetricWriter
+    hooks: tuple = ()
+    device: Any = DEFAULT_DEVICE
+
+    def __post_init__(self):
+        self.device = _check_device(self.model, self.device)
+        self._check_autopack()
+        self.resident = self._maybe_resident()
+        spe = max((self.resident or self.train_loader).steps_per_epoch, 1)
+        k = self.cfg.train.steps_per_dispatch
+        self.train_step = make_train_fn(self.model, self.cfg, self.device, spe)
+        self.state = self.train_step.state
+        self.eval_step = make_eval_fn(self.model, self.cfg, self.device)
+        self.resident_step = self.resident_multi = None
+        if self.resident is not None:
+            self.resident_step = make_resident_step(
+                self.model, self.cfg, self.device, train_step=self.train_step)
+            if k > 1:
+                self.resident_multi = make_resident_multi_step(
+                    self.model, self.cfg, self.device,
+                    train_step=self.train_step)
+        elif k > 1:
+            # Grouped dispatch is resident-only: on the streaming path a
+            # k-step super-batch defeats the overlap of one batch's copy
+            # with the previous step.
+            self._log0(
+                f"steps_per_dispatch={k} "
+                "clamped to 1 on the streaming input path (measured slower "
+                "than single-step dispatch, docs/bench_streaming.json); "
+                "grouped dispatch re-enables when the input is HBM-resident")
+        self.val_resident = self._maybe_val_resident()
+        self.resident_eval_scan = None
+        if self.val_resident is not None:
+            self.resident_eval_scan = make_resident_eval_scan(
+                self.model, self.cfg, self.device, self.eval_step)
+
+    @staticmethod
+    def _log0(msg: str):
+        print(msg, flush=True)
+
+    def _check_autopack(self):
+        """Refuse a decode-backed train set with ``auto_pack`` on: its
+        pack-as-you-stream epoch is not ported yet."""
+        ds = self.train_loader.dataset
+        if (getattr(self.cfg.data, "auto_pack", True)
+                and hasattr(ds, "images_dir") and hasattr(ds, "canvas_size")):
+            raise NotImplementedError(
+                "auto_pack of a decode-backed train set is not ported yet "
+                "(ROADMAP Queue 1, host data: AutoPackDataset); pack the "
+                "split first or turn data.auto_pack off")
+
+    def _maybe_resident(self):
+        """Stage the train split on the device when configured (and it fits)."""
+        mode = getattr(self.cfg.data, "device_resident", "off")
+        if mode == "off":
+            return None
+        from ..data.resident import (ResidentTrainData, resident_arrays,
+                                     resident_budget_bytes, resident_fits,
+                                     resident_nbytes)
+
+        ds = self.train_loader.dataset
+        if resident_arrays(ds) is None:
+            if mode == "on":
+                raise ValueError(
+                    "device_resident=on but the train dataset is not "
+                    "array-backed; pack it first (data.pack)")
+            self._log0("device_resident=auto: train dataset is not "
+                       "array-backed -> streaming")
+            return None
+        share = resident_nbytes(ds)
+        budget = resident_budget_bytes(self.device)
+        if mode == "auto" and not resident_fits(ds, self.device):
+            self._log0(
+                f"device_resident=auto: train split {share / 2**30:.2f} "
+                f"GiB/device > budget {budget / 2**30:.2f} GiB -> streaming "
+                "(raise DSNT_RESIDENT_BUDGET_BYTES to force)")
+            return None
+        self._log0(
+            f"device_resident={mode}: staging train split on the device "
+            f"({share / 2**30:.2f} GiB/device, budget {budget / 2**30:.2f} "
+            "GiB)")
+        return ResidentTrainData(ds, self.cfg.train.batch_size, self.device,
+                                 seed=self.cfg.train.seed)
+
+    def _maybe_val_resident(self):
+        """Stage the val split on the device too, when configured and it
+        fits beside the staged train split; else the eval pass streams
+        (with the same results)."""
+        mode = getattr(self.cfg.data, "device_resident", "off")
+        if mode == "off" or self.val_loader is None:
+            return None
+        from ..data.resident import (ResidentEvalData, resident_arrays,
+                                     resident_fits, resident_nbytes)
+
+        ds = self.val_loader.dataset
+        if resident_arrays(ds) is None:
+            return None
+        staged = self.resident.nbytes if self.resident is not None else 0
+        if mode == "auto" and not resident_fits(ds, self.device,
+                                                extra_nbytes=staged):
+            self._log0(
+                "device_resident=auto: val split does not fit beside the "
+                "staged train split -> streaming eval")
+            return None
+        self._log0(
+            f"device_resident={mode}: staging val split on the device "
+            f"({resident_nbytes(ds) / 2**30:.2f} GiB/device)")
+        return ResidentEvalData(ds, self.cfg.train.batch_size, self.device)
+
+    def init_state(self) -> TrainState:
+        """The state the Trainer's steps train: the restore template."""
+        return self.state
+
+    def run(self, state: TrainState | None = None, start_epoch: int = 0,
+            best_pckh: float = -1.0, start_step: int = 0):
+        """Train from ``start_epoch`` to ``cfg.train.epochs``; returns
+        ``(state, best_pckh)``.
+
+        ``state`` is None or :meth:`init_state`'s object (restored in place
+        from a checkpoint).  ``best_pckh`` seeds the best-model tracker: on
+        resume pass the recorded best, so that a worse resumed model does
+        not take the ``ckpt_best`` slot.  ``start_step`` resumes the FIRST
+        epoch at a mid-epoch offset (exact: the epoch's index stream is
+        replayed from there, and the augmentation draws derive from the
+        restored global step).
+        """
+        if state is None:
+            state = self.state
+        elif state is not self.state:
+            raise ValueError(
+                "run(state=...) takes the Trainer's own state "
+                "(init_state()), restored in place: its steps never see "
+                "another TrainState and would train on the old weights")
+        cfg = self.cfg
+        local_bs = self.train_loader.batch_size
+        k_dispatch = max(cfg.train.steps_per_dispatch, 1)
+        every_steps = cfg.train.checkpoint_every_steps
+        spe = (self.resident or self.train_loader).steps_per_epoch
+        for epoch in range(start_epoch, cfg.train.epochs):
+            t0 = time.time()
+            losses = []
+            step_in_epoch = start_step if epoch == start_epoch else 0
+
+            def maybe_save_step(sie):
+                # Only strictly inside the epoch: the boundary save follows.
+                if (self.checkpointer and every_steps and sie < spe
+                        and sie % every_steps == 0):
+                    self.checkpointer.save_step(state, epoch=epoch,
+                                                step_in_epoch=sie)
+
+            # The input modes (resident single or multi-step, streamed
+            # single steps) become one ("single"|"multi", payload) stream,
+            # so that loss bookkeeping, step counting, checkpoint cadence
+            # and metric records live in ONE loop.  Single-step dispatch
+            # logs the full metrics every ``log_every_steps``; multi-step
+            # dispatch logs its last loss once per dispatch (its ragged
+            # single tail does not log).
+            multi_fn = None
+            if self.resident is not None:
+                res = self.resident.resident
+                single_fn = lambda idx: self.resident_step(res, idx)
+                if self.resident_multi is not None:
+                    multi_fn = lambda idx: self.resident_multi(res, idx)
+                    groups = self.resident.epoch_groups(
+                        epoch, k_dispatch, step_in_epoch)
+                else:
+                    groups = (("single", idx) for idx in
+                              self.resident.epoch(epoch, step_in_epoch))
+            else:
+                single_fn = self.train_step
+                groups = (("single", b) for b in prefetch_to_device(
+                    self.train_loader.epoch(epoch, step_in_epoch), self.device))
+
+            log = _LaggedLog(self.metric_writer, self.device)
+            dispatches = 0  # log gate counter
+            steps_done = 0
+            base_step = state.step
+            log_every_dispatches = max(
+                1, cfg.train.log_every_steps // k_dispatch)
+            for kind, payload in groups:
+                if kind == "single":
+                    m = single_fn(payload)
+                    losses.append(m["loss"])
+                    steps_done += 1
+                    step_in_epoch += 1
+                    maybe_save_step(step_in_epoch)
+                    if (self.metric_writer and multi_fn is None and
+                            dispatches % cfg.train.log_every_steps == 0):
+                        log.put({"epoch": epoch, "step": base_step + steps_done},
+                                m)
+                else:
+                    ms = multi_fn(payload)
+                    losses.append(ms["loss"])  # (k,) on the device
+                    steps_done += k_dispatch
+                    step_in_epoch += k_dispatch
+                    maybe_save_step(step_in_epoch)
+                    if (self.metric_writer and
+                            dispatches % log_every_dispatches == 0):
+                        log.put({"epoch": epoch, "step": base_step + steps_done},
+                                {"loss": ms["loss"][-1]})
+                dispatches += 1
+            if self.metric_writer:
+                log.drain(0)
+            # One read of the epoch's losses, which waits for its last step.
+            flat_losses = (torch.cat([x.reshape(-1) for x in losses]).cpu().numpy()
+                           if losses else np.zeros(0, np.float32))
+            epoch_time = time.time() - t0
+            n_steps = int(flat_losses.size)
+            train_loss = float(flat_losses.mean()) if n_steps else float("nan")
+
+            summary = {"epoch": epoch, "train_loss": train_loss,
+                       "epoch_seconds": epoch_time,
+                       "images_per_sec": n_steps * local_bs / max(epoch_time, 1e-9)}
+            will_ckpt = bool(self.checkpointer) and \
+                (epoch + 1) % cfg.train.checkpoint_every_epochs == 0
+            if self.val_loader is not None and \
+                    (epoch + 1) % cfg.train.eval_every_epochs == 0:
+                sample_dir = None
+                if self.metric_writer is not None and self.metric_writer.path:
+                    sample_dir = os.path.join(
+                        os.path.dirname(self.metric_writer.path), "samples")
+                tb = time.time()
+                val = self.evaluate(sample_dir=sample_dir, epoch=epoch)
+                summary.update({"val_loss": val["loss"],
+                                "val_pckh": val["pckh"],
+                                "eval_seconds": round(time.time() - tb, 3)})
+                is_best = val["pckh"] > best_pckh
+                best_pckh = max(best_pckh, val["pckh"])
+            else:
+                is_best = False
+            if will_ckpt:
+                tb = time.time()
+                self.checkpointer.save(epoch, state, is_best=is_best,
+                                       metrics=summary)
+                summary["ckpt_seconds"] = round(time.time() - tb, 3)
+            if self.metric_writer:
+                self.metric_writer.write(summary)
+            for hook in self.hooks:
+                hook(epoch, state, summary)
+        if self.checkpointer:
+            self.checkpointer.wait()
+        return state, best_pckh
+
+    def evaluate(self, sample_dir: str | None = None, epoch: int = 0) -> dict:
+        """One eval pass of the val split with the current weights: the
+        resident scan when the split is staged, else the streaming pass."""
+        if self.val_resident is not None:
+            return run_evaluation_resident_scan(
+                self.resident_eval_scan, self.val_resident,
+                self.model.cfg.num_joints, sample_dir=sample_dir,
+                epoch=epoch, dataset=self.val_loader.dataset)
+        return run_evaluation(self.eval_step, self.device, self.val_loader,
+                              self.model.cfg.num_joints,
+                              sample_dir=sample_dir, epoch=epoch)

@@ -30,7 +30,8 @@ def _modules():
 
 
 NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "data.loader",
-               "data.pack", "data.resident", "ops.cuda.calib")
+               "data.mpii", "data.pack", "data.resident", "ops.cuda.calib",
+               "train.checkpoint", "train.metrics", "utils.visualization")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -114,3 +115,21 @@ def test_benches_default_to_cuda_and_raise_without_it(no_cuda, monkeypatch):
     monkeypatch.delenv("DSNT_RESIDENT_BUDGET_BYTES", raising=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resident.resident_budget_bytes()
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from dsnt_pose2d_tpu_torch.data.loader import ShardedLoader
+    from dsnt_pose2d_tpu_torch.data.mpii import ArrayDataset
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+    from dsnt_pose2d_tpu_torch.train.loop import Trainer
+
+    cfg = tconfig.Config(model=tconfig.ModelConfig(base="hg1", hg_features=16,
+                                                   input_size=32),
+                         train=tconfig.TrainConfig(batch_size=2))
+    model = build_pose_model(cfg.model, device="cpu")
+    loader = ShardedLoader(ArrayDataset(make_synthetic_mpii(4, 16)), 2,
+                           shuffle=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model=model, cfg=cfg, train_loader=loader)
+    trainer = Trainer(model=model, cfg=cfg, train_loader=loader, device="cpu")
+    assert trainer.device.type == "cpu" and trainer.resident is not None
