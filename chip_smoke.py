@@ -17,7 +17,11 @@ streaming and resident epochs at batch 32), and last the port's Trainer on
 the same config: two epochs of resident k=4 training with the resident eval
 scan, checkpoints and metric records, a resume from its mid-epoch
 checkpoint held bitwise against the uninterrupted run, and the streaming
-eval pass held against the resident one.
+eval pass held against the resident one.  Then the CLIs on the same model
+(``cli`` phase): ``cli.train`` for one epoch, ``cli.evaluate`` without and
+with flip and 3 eval scales (its eval step held against the plain path),
+``cli.infer`` into a ``.mat``, and the Trainer's auto-pack over a
+decode-backed stand-in.
 
 Run from the root of a checkout, with no arguments:
 
@@ -371,26 +375,36 @@ def random_row_shift_inputs(call, seed):
             torch.rand((r,), generator=g).to(rows.device), out, stride)
 
 
+def assert_row_shift_bitwise(path, calls):
+    """Each recorded ``(rows, starts, fracs, out, stride)`` call of row_shift
+    against its plain version, bitwise: on the inputs the path gave it and
+    on random rows, starts and fracs of the same shape.  Returns the shapes
+    ``[rows, row length, out]``."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
+
+    shapes = []
+    for i, call in enumerate(calls):
+        shape = [*call[0].shape, call[3]]
+        for inputs in (call, random_row_shift_inputs(call, seed=i)):
+            rows, starts, fracs, out, stride = inputs
+            got = shift_rows(rows, starts, fracs, out, stride=stride)
+            exp = shift_rows_reference(rows, starts, fracs, out, stride=stride)
+            torch.cuda.synchronize()
+            if not torch.equal(got, exp):
+                raise AssertionError(
+                    f"row_shift {path} {shape} differs from its plain "
+                    f"version: max {(got - exp).abs().max().item()}")
+        shapes.append(shape)
+    return shapes
+
+
 def phase_row_shift_vs_plain(recorded):
     """row_shift against its plain version, bitwise, at every shape that the
     main path's counted runs gave it: on the inputs the path gave it, and on
     random rows, starts and fracs of the same shape (the eval crop has no
     shear, so its fracs are 0; random ones exercise the lerp)."""
-    from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
-
-    checked = {}
-    for path, calls in recorded.items():
-        for i, (shape, call) in enumerate(calls.items()):
-            for inputs in (call, random_row_shift_inputs(call, seed=i)):
-                rows, starts, fracs, out, stride = inputs
-                got = shift_rows(rows, starts, fracs, out, stride=stride)
-                exp = shift_rows_reference(rows, starts, fracs, out, stride=stride)
-                torch.cuda.synchronize()
-                if not torch.equal(got, exp):
-                    raise AssertionError(
-                        f"row_shift {path} {shape} differs from its plain "
-                        f"version: max {(got - exp).abs().max().item()}")
-            checked.setdefault(path, []).append(list(shape))
+    checked = {path: assert_row_shift_bitwise(path, list(calls.values()))
+               for path, calls in recorded.items()}
     legacy = row_shift_legacy_vs_plain(recorded)
     emit("row_shift_vs_plain", bitwise_equal=True, shapes=checked,
          inputs=["main path", "random"], max_abs_err=0.0, legacy=legacy)
@@ -419,20 +433,23 @@ def row_shift_legacy_vs_plain(recorded):
 
 
 @contextlib.contextmanager
-def recording_row_shift(calls: dict):
-    """The shear warp's row_shift calls pass on to the kernel; the first
-    call of each ``(rows, row length, out length)`` is kept in ``calls``
-    as ``(rows, starts, fracs, out, stride)``."""
+def recording_row_shift(calls):
+    """The shear warp's row_shift calls pass on to the kernel and are kept
+    as ``(rows, starts, fracs, out, stride)``: in a dict, the first call of
+    each ``(rows, row length, out length)``; in a list, every call."""
     from dsnt_pose2d_tpu_torch.data import augment
 
     kernel = augment.shift_rows
 
     def record(rows, starts, fracs, out, stride=1):
         key = (*rows.shape, out)
-        if key not in calls:
+        if isinstance(calls, list) or key not in calls:
             with torch.inference_mode(False):   # plain tensors, not inference ones
-                calls[key] = (rows.clone(), starts.clone(), fracs.clone(), out,
-                              stride)
+                call = (rows.clone(), starts.clone(), fracs.clone(), out, stride)
+            if isinstance(calls, list):
+                calls.append(call)
+            else:
+                calls[key] = call
         return kernel(rows, starts, fracs, out, stride)
 
     augment.shift_rows = record
@@ -1376,6 +1393,288 @@ def phase_trainer(dev, card, device_step_img_per_s):
     return launches
 
 
+# The cli phase: the flagship through the train, evaluate and infer CLIs at
+# batch 32 on 384-px synthetic canvases: 128 train rows (4 steps, one
+# resident dispatch of k=4) and 32 val rows (one eval step), one epoch; then
+# the Trainer's auto-pack over a decode-backed stand-in of the same 128 rows,
+# 2 epochs.
+CLI_MODEL = ["--base-model", "hg8", "--reg", "js", "--hm-sigma", "1.0"]
+CLI_ROWS = 128
+CLI_SCALES = "0.9,1.0,1.1"
+CLI_AUTOPACK_EPOCHS = 2
+# Kernel launches of one run of each, from the code: the train CLI's 4 steps
+# (1 head fwd, 1 bwd, 2 row_shift each) and its one resident eval step (2
+# fwd: decode and loss; 2 row_shift); a single-pass eval step (2 fwd, 2
+# row_shift); the eval step with flip and 3 scales (the canonical pass:
+# decode, loss, flipped decode = 3 fwd, 2 row_shift; each other scale:
+# decode and flipped decode = 2 fwd, 2 row_shift; the flip reuses the warped
+# images); the infer step with flip and 3 scales (2 fwd, 2 row_shift a
+# scale); auto-pack: 4 streamed + 4 resident train steps.
+CLI_LAUNCHES = {
+    "train": {"dsnt_head_fwd": 4 + 2, "dsnt_head_bwd": 4, "row_shift": 8 + 2},
+    "evaluate": {"dsnt_head_fwd": 2, "dsnt_head_bwd": 0, "row_shift": 2},
+    "evaluate_flip_scales": {"dsnt_head_fwd": 3 + 2 * 2, "dsnt_head_bwd": 0,
+                             "row_shift": 2 * 3},
+    "infer_flip_scales": {"dsnt_head_fwd": 2 * 3, "dsnt_head_bwd": 0,
+                          "row_shift": 2 * 3},
+    "autopack": {"dsnt_head_fwd": 8, "dsnt_head_bwd": 8, "row_shift": 16},
+}
+
+
+def assert_cli_flagship(cfg):
+    """The train CLI's config, as its run wrote it: the flagship at full
+    width (the CLI's defaults: 256 features, 256 px, bf16, the fused head),
+    at batch 32."""
+    m = cfg.model
+    assert (m.base, m.hg_features, m.resolved_input_size, m.dtype, m.reg,
+            m.hm_sigma, m.use_pallas) == ("hg8", 256, 256, "bfloat16", "js",
+                                          1.0, True), m
+    assert cfg.train.batch_size == BATCH and cfg.data.warp_method == "shear"
+
+
+class DecodeBackedStandIn:
+    """Rows of a dict of arrays behind the surface that the Trainer's
+    auto-pack takes for a decode-backed MPII split (``images_dir``,
+    ``canvas_size``, ``subset``): the card machine has neither PIL nor
+    h5py, so no MPII layout can be decoded there."""
+
+    images_dir = "synthetic"
+    subset = "train"
+
+    def __init__(self, arrays: dict):
+        self.arrays = arrays
+        self.canvas_size = arrays["canvases"].shape[1]
+
+    def __len__(self):
+        return len(self.arrays["canvases"])
+
+    def __getitem__(self, i: int) -> dict:
+        return {k: v[i] for k, v in self.arrays.items()}
+
+
+def phase_cli(dev, card):
+    """The CLIs' main(argv) in this process (so the launch counters count),
+    at the flagship's full width, then the Trainer's auto-pack."""
+    import dataclasses
+    import functools
+    import io
+    import tempfile
+
+    from scipy.io import loadmat
+
+    from dsnt_pose2d_tpu_torch import native
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.cli import common
+    from dsnt_pose2d_tpu_torch.cli import evaluate as evaluate_cli
+    from dsnt_pose2d_tpu_torch.cli import infer as infer_cli
+    from dsnt_pose2d_tpu_torch.cli import train as train_cli
+    from dsnt_pose2d_tpu_torch.data.loader import ShardedLoader, to_device
+    from dsnt_pose2d_tpu_torch.data.pack import PackedDataset
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.loop import EvalDriver, Trainer
+    from dsnt_pose2d_tpu_torch.train.metrics import MetricWriter
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    drivers = []
+
+    class RecordingDriver(EvalDriver):
+        """The CLIs' EvalDriver, kept with what evaluate() returned."""
+
+        def __post_init__(self):
+            super().__post_init__()
+            self.result = None
+            drivers.append(self)
+
+        def evaluate(self, *args, **kw):
+            self.result = super().evaluate(*args, **kw)
+            return self.result
+
+    launches, walls, printed = {}, {}, {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in kernels.launch_counts().items()
+                          if k in CLI_LAUNCHES[name]}
+        printed[name] = out.getvalue().splitlines()
+        if launches[name] != CLI_LAUNCHES[name]:
+            raise AssertionError(f"cli {name} launches {launches[name]}, "
+                                 f"expected {CLI_LAUNCHES[name]}")
+        return result
+
+    # Same seeds, same arrays: each CLI makes the synthetic splits again, and
+    # the smoke makes each split once.
+    synth = functools.cache(common.make_synthetic_mpii)
+    saved = (common.make_synthetic_mpii, evaluate_cli.EvalDriver,
+             infer_cli.EvalDriver)
+    common.make_synthetic_mpii = synth
+    evaluate_cli.EvalDriver = infer_cli.EvalDriver = RecordingDriver
+    val_rows = max(CLI_ROWS // 4, 8)     # cli.common.make_datasets' val split
+    assert val_rows == BATCH, "one eval step"
+    data = ["--data-source", "synthetic", "--synthetic-size", str(CLI_ROWS),
+            "--canvas-size", str(CANVAS), "--device", dev.type]
+    try:
+        with tempfile.TemporaryDirectory(prefix="dsnt_cli_") as tmp:
+            tmp = Path(tmp)
+            exp_dir = tmp / "cli"
+            # 1. Train: one epoch of 4 resident steps in one dispatch.
+            counted("train", lambda: train_cli.main(
+                CLI_MODEL + ["--batch-size", str(BATCH), "--epochs", "1",
+                             "--device-resident", "on", "--steps-per-dispatch", "4",
+                             "--out-dir", str(tmp), "--experiment-id", "cli"] + data))
+            for name in ("config.json", "metrics.jsonl"):
+                assert (exp_dir / name).exists(), name
+            assert_cli_flagship(config_from_json((exp_dir / "config.json").read_text()))
+            assert os.listdir(exp_dir / "ckpt") == ["0"]
+            with open(exp_dir / "metrics.jsonl") as f:
+                summary = [r for r in map(json.loads, f) if "step" not in r][-1]
+            final = printed["train"][-1]
+            assert final == f"done; best val PCKh@0.5 = {100 * summary['val_pckh']:.2f}", final
+            assert "device_resident=on: staging train split" in "\n".join(printed["train"])
+
+            # 2. Round trip: evaluate with no flip and no scales.
+            model_dir = ["--model-dir", str(exp_dir)]
+            counted("evaluate", lambda: evaluate_cli.main(model_dir + data))
+            single = drivers[-1]
+            eval_pckh = single.result["pckh"]
+            if eval_pckh != summary["val_pckh"]:
+                raise AssertionError(f"evaluate's PCKh {single.result['pckh']} "
+                                     f"!= the train run's {summary['val_pckh']}")
+
+            # 3. Flip and 3 scales, then its eval step against the same
+            # step with the head's and row_shift's plain versions.
+            flip_args = ["--flip-eval", "--eval-scales", CLI_SCALES]
+            counted("evaluate_flip_scales",
+                    lambda: evaluate_cli.main(model_dir + flip_args + data))
+            flip = drivers[-1]
+            assert flip.cfg.train.flip_eval and flip.cfg.train.eval_scales == (0.9, 1.0, 1.1)
+            batch = to_device(next(flip.loader.epoch(0)), dev)
+            with recording_row_shift([]) as shift_calls:
+                out = flip.eval_step(batch)
+            kernels.reset_launch_counts()
+            with plain_head(), plain_row_shift():
+                ref = flip.eval_step(batch)
+            torch.cuda.synchronize()
+            assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+            loss_rel = abs(out["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
+            pred_err = (out["pred_orig"] - ref["pred_orig"]).abs().max().item()
+            if (loss_rel > STEP_TOL["loss_rtol"]
+                    or pred_err > STEP_TOL["pred_orig_atol_px"]
+                    or not torch.equal(out["pckh_correct"], ref["pckh_correct"])):
+                raise AssertionError(f"flip x 3 scales eval step vs plain: loss rel "
+                                     f"{loss_rel}, pred_orig max err {pred_err} px")
+            assert len(shift_calls) == 6
+            # Calls 2-3 are scale 0.9's, 4-5 scale 1.1's (scale 1.0 is the
+            # canonical pass, calls 0-1).
+            shift_shapes = assert_row_shift_bitwise("cli", shift_calls[2:])
+
+            # 4. Infer with flip and 3 scales into a .mat (no h5py here).
+            mat = tmp / "preds.mat"
+            counted("infer_flip_scales", lambda: infer_cli.main(
+                model_dir + flip_args + ["--preds-file", str(mat)] + data))
+            preds = loadmat(mat)["preds"]
+            assert preds.shape == (val_rows, 16, 2) and np.isfinite(preds).all(), preds.shape
+            infer_err = float(np.abs(preds - out["pred_orig"].cpu().numpy()).max())
+            assert infer_err <= 1e-3, infer_err
+
+            # 6. Times: the eval step with flip x 3 scales against the
+            # single pass, in turns; predict's img/s.
+            single_ms = timing.time_ms(lambda: single.eval_step(batch), spread=True)
+            flip_ms = timing.time_ms(lambda: flip.eval_step(batch), spread=True)
+            single_ms_2 = timing.time_ms(lambda: single.eval_step(batch), spread=True)
+            flip_ms_2 = timing.time_ms(lambda: flip.eval_step(batch), spread=True)
+            infer_driver = drivers[-1]
+            predict_s = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                infer_driver.predict()
+                predict_s.append(time.perf_counter() - t0)
+            train_rows = synth(CLI_ROWS, canvas_size=CANVAS, seed=1)
+            del drivers[:], single, flip, infer_driver, batch, out, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 5. Auto-pack: 2 epochs of the flagship over a decode-backed
+            # stand-in of the train rows (uint8 canvases, as a decoder
+            # gives): epoch 0 streams and writes, epoch 1 trains resident.
+            source = {**train_rows, "canvases": np.round(
+                train_rows["canvases"] * 255.0).astype(np.uint8)}
+            ap_cfg = trainer_config()
+            ap_cfg = dataclasses.replace(
+                ap_cfg, data=dataclasses.replace(ap_cfg.data,
+                                                 data_dir=str(tmp / "data")),
+                train=dataclasses.replace(ap_cfg.train, epochs=CLI_AUTOPACK_EPOCHS))
+            boundary = []
+            trainer = Trainer(
+                model=build_pose_model(ap_cfg.model, device=dev, seed=0),
+                cfg=ap_cfg, device=dev,
+                train_loader=ShardedLoader(DecodeBackedStandIn(source), BATCH,
+                                           shuffle=True, seed=ap_cfg.train.seed,
+                                           workers=4),
+                metric_writer=MetricWriter(str(tmp / "autopack"), echo=False),
+                hooks=(lambda e, st, summ: boundary.append(
+                    (st.step, st.optimizer.count, summ["images_per_sec"])),))
+            assert trainer._autopack is not None and trainer.resident is None
+            optimizer = trainer.state.optimizer
+            state, _ = counted("autopack", trainer.run)
+            assert isinstance(trainer.train_loader.dataset, PackedDataset)
+            assert trainer.resident is not None and trainer.resident_multi is not None
+            assert trainer.resident_multi.state is state is trainer.train_step.state
+            assert state.optimizer is optimizer
+            assert [b[:2] for b in boundary] == [(4, 4), (8, 8)], boundary
+            rms_steps = {int(st["step"]) for st in optimizer.optimizer.state.values()}
+            assert rms_steps == {8}, rms_steps
+            packed = trainer.train_loader.dataset
+            archive_equal = bool(np.array_equal(packed.canvases, source["canvases"]) and all(
+                np.array_equal(packed.meta[k], source[k]) for k in packed.meta))
+            assert archive_equal, "the auto-packed archive differs from its source"
+            del trainer, state, optimizer, packed
+    finally:
+        common.make_synthetic_mpii, evaluate_cli.EvalDriver, infer_cli.EvalDriver = saved
+    t0 = time.perf_counter()
+    native_built = native.available()
+    native_s = time.perf_counter() - t0
+    emit("cli", card=card, config=" ".join(CLI_MODEL), batch=BATCH, canvas=CANVAS,
+         rows={"train": CLI_ROWS, "val": val_rows},
+         launches=launches, wall_seconds=walls,
+         train={"final_line": final, "epoch_images_per_sec": summary["images_per_sec"],
+                "val_pckh": summary["val_pckh"], "val_loss": summary["val_loss"]},
+         evaluate={"pckh": eval_pckh, "round_trip_equal": True},
+         flip_scales_vs_plain={"loss_rel_diff": loss_rel,
+                               "pred_orig_max_diff_px": pred_err,
+                               "pckh_counts_equal": True, "tolerance": STEP_TOL,
+                               "row_shift_bitwise_shapes": shift_shapes},
+         infer={"preds_shape": list(preds.shape), "vs_evaluate_max_diff_px": infer_err},
+         eval_step_ms={"single": single_ms[0], "flip_x3_scales": flip_ms[0],
+                       "single_again": single_ms_2[0], "flip_x3_scales_again": flip_ms_2[0],
+                       "spread_min_max": {"single": single_ms[1:],
+                                          "flip_x3_scales": flip_ms[1:]}},
+         eval_step_img_per_s={"single": BATCH / single_ms[0] * 1e3,
+                              "flip_x3_scales": BATCH / flip_ms[0] * 1e3},
+         predict_img_per_s=[val_rows / t for t in predict_s],
+         autopack={"epochs": CLI_AUTOPACK_EPOCHS, "step_count_at_boundaries":
+                   [b[:2] for b in boundary],
+                   "epoch_images_per_sec": [b[2] for b in boundary],
+                   "archive_bitwise_equal": archive_equal},
+         native_decoder_built=native_built, native_build_seconds=native_s,
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -1412,11 +1711,13 @@ def main():
     for name, n in phase_bench(card).items():
         bench_launches[name] += n
     trainer_launches = phase_trainer(dev, card, train_img_per_s)
+    cli_launches = phase_cli(dev, card)
     paths = {"serve": serve_launches, "train": train_launches,
-             "bench": bench_launches, "trainer": trainer_launches}
+             "bench": bench_launches, "trainer": trainer_launches,
+             "cli": cli_launches}
 
     def launches(name):
-        by_path = {p: counts[name] for p, counts in paths.items()}
+        by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def frac_of_ceiling(nbytes, ms):

@@ -1,5 +1,6 @@
 """Deterministic, prefetching batch loader and the host-to-device copy
-(port of ``dsnt_pose2d_tpu/data/loader.py``, one host).
+(port of ``dsnt_pose2d_tpu/data/loader.py``, one host; the multi-host
+split comes with data parallelism).
 
 - **determinism / resume**: the permutation is a pure function of
   ``(seed, epoch)`` (numpy ``default_rng``, as the JAX package), and an
@@ -104,6 +105,22 @@ class ShardedLoader:
         if self.shuffle:
             return np.random.default_rng((self.seed, epoch)).permutation(n)
         return np.arange(n)
+
+    def global_index_batches(self, epoch: int = 0) -> list[np.ndarray]:
+        """Dataset indices of each batch of :meth:`epoch`; -1 marks pad rows.
+
+        ``EvalDriver.predict`` scatters each batch's outputs back into
+        dataset order through this map.
+        """
+        idx = self._epoch_indices(epoch)
+        bs = self.batch_size
+        out = []
+        for step in range(self.steps_per_epoch):
+            chunk = idx[step * bs:(step + 1) * bs]
+            pad = bs - len(chunk)
+            out.append(np.concatenate([chunk, np.full(pad, -1, chunk.dtype)])
+                       if pad else chunk.copy())
+        return out
 
     def epoch(self, epoch: int, start_step: int = 0):
         """Yield collated numpy batches for one epoch, from ``start_step``."""

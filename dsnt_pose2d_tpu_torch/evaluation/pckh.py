@@ -48,6 +48,9 @@ class PCKhEvaluator:
         self.threshold = threshold
         self.correct = np.zeros(num_joints)
         self.total = np.zeros(num_joints)
+        # Split provenance ('val-list:...' or 'hash-holdout:...'), printed
+        # with the table so that no PCKh number goes without its caveat.
+        self.provenance = ""
 
     def add(self, pred_coords, true_coords, joint_mask, head_lengths):
         """All inputs in ORIGINAL-image pixel space."""
@@ -88,6 +91,10 @@ class PCKhEvaluator:
             lines.append(f"  {name:<9s} {100 * v:6.2f}")
         lines.append(f"  {'total':<9s} {100 * self.total_pckh():6.2f}")
         lines.append(f"  {'total16':<9s} {100 * self.total_pckh_all():6.2f}")
+        if self.provenance:
+            note = ("" if self.provenance.startswith("val-list")
+                    else " (NOT comparable to published Tompson-split numbers)")
+            lines.append(f"  split: {self.provenance}{note}")
         return "\n".join(lines)
 
     def reset(self):

@@ -23,8 +23,15 @@ eval step over a :class:`..data.resident.ResidentEvalData` split.
 :class:`Trainer` is the epoch loop: train steps (resident ``k``-step
 dispatch groups or streamed single steps), the eval pass at epoch ends
 (:func:`run_evaluation`, :func:`run_evaluation_resident`,
-:func:`run_evaluation_resident_scan`), checkpoints and metric records.
-Flip and multi-scale evaluation are not ported yet.
+:func:`run_evaluation_resident_scan`), checkpoints and metric records,
+and auto-pack: a decode-backed train split streams its first epoch while
+the packed archive is written, then trains from the archive (resident when
+it fits).  The infer and eval steps average a mirrored pass
+(``flip_eval``) and several crop scales (``eval_scales``) in original-image
+pixels.
+
+:class:`EvalDriver` is the evaluate/infer path without the Trainer: a
+restore template, the eval pass, and ``predict`` in dataset order.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 
 from ..data.augment import preprocess_batch, sample_train_draws
 from ..data.loader import prefetch_pairs, prefetch_to_device, stage_ahead, to_device
-from ..data.transforms import invert, transform_coords
+from ..data.transforms import flip_permutation, invert, transform_coords
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..evaluation.pckh import PCKhEvaluator, pckh_batch_counts
 from ..models.factory import PoseModel
@@ -69,30 +76,37 @@ def _to_original_px(coords_norm, crop_from_orig, in_size: int):
     return transform_coords(invert(crop_from_orig), crop_px)
 
 
-def _decode_averaged(model: PoseModel, images):
-    """Eval-mode forward + decode: ``(raw heatmaps, coords_norm)``.  Only
-    the default case (no flip averaging) is ported."""
+def _eval_scales(cfg: Config) -> tuple:
+    """The multi-scale evaluation's crop scales, canonical first."""
+    scales = tuple(float(s) for s in (cfg.train.eval_scales or (1.0,)))
+    return scales or (1.0,)
+
+
+def _decode_averaged(model: PoseModel, cfg: Config, images):
+    """Eval-mode forward + decode: ``(raw heatmaps, coords_norm)``.
+
+    The heatmaps are the unflipped pass's (the loss is always scored on the
+    canonical view).  With ``flip_eval`` a mirrored pass is decoded too:
+    ``images`` are NHWC, so the flip is along dim 2 (the width); its x is
+    negated (exact on the symmetric pixel-center grid), the L/R joints are
+    swapped and the two decodes averaged.
+    """
     heatmaps = model.forward(images, train=False)
-    return heatmaps, model.decode(heatmaps)
+    coords_norm = model.decode(heatmaps)
+    if cfg.train.flip_eval:
+        coords_f = model.decode(model.forward(torch.flip(images, dims=(2,)),
+                                              train=False))
+        perm = flip_permutation(coords_f.shape[-2], device=coords_f.device)
+        coords_f = torch.stack([-coords_f[..., 0], coords_f[..., 1]],
+                               dim=-1)[..., perm, :]
+        coords_norm = 0.5 * (coords_norm + coords_f)
+    return heatmaps, coords_norm
 
 
 def _check_device(model: PoseModel, device) -> torch.device:
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(f"model is on {model.device}, step asked for {dev}")
-    return dev
-
-
-def _check_supported(model: PoseModel, cfg: Config, device) -> torch.device:
-    dev = _check_device(model, device)
-    if cfg.train.flip_eval:
-        raise NotImplementedError(
-            "flip_eval is not ported yet (ROADMAP Queue 1, EvalDriver with "
-            "flip and multi-scale eval)")
-    if tuple(float(s) for s in (cfg.train.eval_scales or (1.0,))) != (1.0,):
-        raise NotImplementedError(
-            "multi-scale eval is not ported yet (ROADMAP Queue 1, EvalDriver "
-            "with flip and multi-scale eval)")
     return dev
 
 
@@ -110,12 +124,12 @@ def _on_device(batch: dict, dev: torch.device) -> dict:
 
 
 def _preprocess(batch: dict, cfg: Config, in_size: int,
-                draws: dict | None = None) -> dict:
+                draws: dict | None = None, eval_scale: float = 1.0) -> dict:
     return preprocess_batch(
         batch["canvases"], batch["coords_px"], batch["mask"],
         batch["head_length"], batch["canvas_from_orig"], cfg.data, in_size,
         train=draws is not None, canvas_margin=batch.get("canvas_margin"),
-        draws=draws)
+        eval_scale=eval_scale, draws=draws)
 
 
 def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
@@ -244,32 +258,57 @@ def _prefetch_dispatch_groups(batch_iter, k: int, device, depth: int = 1):
 
 
 def make_infer_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
-    """Serving step: batch of canvases -> ``(B, J, 2)`` original-image px."""
-    dev = _check_supported(model, cfg, device)
+    """Serving step: batch of canvases -> ``(B, J, 2)`` original-image px.
+
+    One deterministic preprocess, forward and decode per scale of
+    ``eval_scales`` (each with its mirrored pass under ``flip_eval``),
+    averaged in original-image pixels.
+    """
+    dev = _check_device(model, device)
     in_size = model.input_size
 
     @torch.inference_mode()
     def infer_step(batch: dict) -> torch.Tensor:
         batch = _on_device(batch, dev)
-        pre = _preprocess(batch, cfg, in_size)
-        _, coords_norm = _decode_averaged(model, pre["images"])
-        return _to_original_px(coords_norm, pre["crop_from_orig"], in_size)
+        preds = []
+        for s in _eval_scales(cfg):
+            pre = _preprocess(batch, cfg, in_size, eval_scale=s)
+            _, coords_norm = _decode_averaged(model, cfg, pre["images"])
+            preds.append(_to_original_px(coords_norm, pre["crop_from_orig"],
+                                         in_size))
+        return sum(preds) / len(preds)
 
     return infer_step
 
 
 def make_eval_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
-    """Eval step: ``{loss, pckh_correct, pckh_total, pred_orig}`` per batch."""
-    dev = _check_supported(model, cfg, device)
+    """Eval step: ``{loss, pckh_correct, pckh_total, pred_orig}`` per batch.
+
+    The loss and the ground truth's mapping come from the canonical
+    scale-1.0 pass, whatever ``eval_scales`` says; each other scale re-crops
+    and decodes, and the predictions average in original-image pixels.
+    """
+    dev = _check_device(model, device)
     in_size = model.input_size
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
         batch = _on_device(batch, dev)
         pre = _preprocess(batch, cfg, in_size)
-        heatmaps, coords_norm = _decode_averaged(model, pre["images"])
+        heatmaps, coords_norm = _decode_averaged(model, cfg, pre["images"])
         loss, _ = model.loss(heatmaps, pre["coords"], pre["mask"])
-        pred_orig = _to_original_px(coords_norm, pre["crop_from_orig"], in_size)
+        pred_canonical = _to_original_px(coords_norm, pre["crop_from_orig"],
+                                         in_size)
+        preds = []
+        for s in _eval_scales(cfg):
+            if s == 1.0:
+                preds.append(pred_canonical)
+                continue
+            pre_s = _preprocess(batch, cfg, in_size, eval_scale=s)
+            _, coords_s = _decode_averaged(model, cfg, pre_s["images"])
+            preds.append(_to_original_px(coords_s, pre_s["crop_from_orig"],
+                                         in_size))
+        pred_orig = sum(preds) / len(preds)
         gt_orig = _to_original_px(pre["coords"], pre["crop_from_orig"], in_size)
         correct, total = pckh_batch_counts(
             pred_orig, gt_orig, pre["mask"], pre["head_length"])
@@ -457,10 +496,12 @@ class Trainer:
     optimizer chain, the step count and the seed).  The Trainer builds its
     steps once, and the single, multi-step and resident steps share one
     state, which :meth:`init_state` returns; :meth:`run` trains that object
-    and takes no other (restore a checkpoint into it in place).  A decode
-    backed train set with ``auto_pack``, several hosts and
-    ``pretrained_resnet`` are not ported yet (ROADMAP Queue 1: host data,
-    data parallel, ResNet).
+    and takes no other (restore a checkpoint into it in place).  With
+    ``auto_pack`` a decode-backed train split streams epoch 0 through
+    :class:`..data.pack.AutoPackDataset` and trains from the published
+    archive after it (:meth:`_swap_to_packed`).  Several processes and
+    ``pretrained_resnet`` are not ported yet (ROADMAP Queue 1: Data
+    parallel, ResNet).
     """
 
     model: PoseModel
@@ -474,7 +515,7 @@ class Trainer:
 
     def __post_init__(self):
         self.device = _check_device(self.model, self.device)
-        self._check_autopack()
+        self._autopack = self._maybe_autopack()
         self.resident = self._maybe_resident()
         spe = max((self.resident or self.train_loader).steps_per_epoch, 1)
         k = self.cfg.train.steps_per_dispatch
@@ -483,12 +524,7 @@ class Trainer:
         self.eval_step = make_eval_fn(self.model, self.cfg, self.device)
         self.resident_step = self.resident_multi = None
         if self.resident is not None:
-            self.resident_step = make_resident_step(
-                self.model, self.cfg, self.device, train_step=self.train_step)
-            if k > 1:
-                self.resident_multi = make_resident_multi_step(
-                    self.model, self.cfg, self.device,
-                    train_step=self.train_step)
+            self._make_resident_steps()
         elif k > 1:
             # Grouped dispatch is resident-only: on the streaming path a
             # k-step super-batch defeats the overlap of one batch's copy
@@ -508,16 +544,71 @@ class Trainer:
     def _log0(msg: str):
         print(msg, flush=True)
 
-    def _check_autopack(self):
-        """Refuse a decode-backed train set with ``auto_pack`` on: its
-        pack-as-you-stream epoch is not ported yet."""
+    def _make_resident_steps(self):
+        """The resident single and (k > 1) multi-step over the Trainer's
+        own train step: one optimizer state and one step count, whichever
+        input path runs."""
+        self.resident_step = make_resident_step(
+            self.model, self.cfg, self.device, train_step=self.train_step)
+        if self.cfg.train.steps_per_dispatch > 1:
+            self.resident_multi = make_resident_multi_step(
+                self.model, self.cfg, self.device, train_step=self.train_step)
+
+    def _maybe_autopack(self):
+        """Install pack-as-you-stream on a decode-backed train split.
+
+        Epoch 0 then doubles as the pack pass (see
+        :class:`..data.pack.AutoPackDataset`); the epoch boundary publishes
+        the archive and :meth:`_swap_to_packed` swaps the loader (and
+        residency).  One process only: the archive's files would collide
+        across processes, and each would stream only its share.
+        """
+        if not getattr(self.cfg.data, "auto_pack", True):
+            return None
+        if (torch.distributed.is_available() and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() != 1):
+            return None
         ds = self.train_loader.dataset
-        if (getattr(self.cfg.data, "auto_pack", True)
-                and hasattr(ds, "images_dir") and hasattr(ds, "canvas_size")):
-            raise NotImplementedError(
-                "auto_pack of a decode-backed train set is not ported yet "
-                "(ROADMAP Queue 1, host data: AutoPackDataset); pack the "
-                "split first or turn data.auto_pack off")
+        # Duck-typed: only a decode-backed MPII split (images_dir +
+        # canvas_size) needs packing; packed and array-backed ones do not.
+        if not (hasattr(ds, "images_dir") and hasattr(ds, "canvas_size")):
+            return None
+        from ..data.pack import AutoPackDataset
+
+        out_dir = os.path.join(getattr(self.cfg.data, "data_dir", "."), "packed")
+        ap = AutoPackDataset(ds, out_dir, subset=getattr(ds, "subset", "train"))
+        self.train_loader.dataset = ap
+        self._log0(f"auto_pack: epoch 0 streams {len(ds)} samples AND writes "
+                   f"the packed archive -> {out_dir} (switching to the mmap "
+                   "reader at the epoch boundary; --no-auto-pack disables)")
+        return ap
+
+    def _swap_to_packed(self, epoch: int):
+        """Publish the auto-packed archive and swap the train input path.
+
+        Residency is evaluated again as at construction, so with
+        ``device_resident`` auto/on the next epoch runs the resident steps.
+        They are made over :attr:`train_step`, so the optimizer state and
+        the step count run on through the swap; steps_per_epoch is
+        unchanged (same samples, same batch), and so are the lr schedule
+        and the mid-epoch checkpoint cadence.
+        """
+        from ..data.loader import ShardedLoader
+        from ..data.pack import PackedDataset
+
+        packed_dir = self._autopack.finalize()
+        subset = self._autopack.subset
+        self._autopack = None
+        old = self.train_loader
+        self.train_loader = ShardedLoader(
+            PackedDataset(packed_dir, subset), old.batch_size,
+            shuffle=old.shuffle, seed=old.seed, drop_last=old.drop_last,
+            prefetch=old.prefetch, workers=old.workers)
+        self._log0(f"auto_pack: published {packed_dir} after epoch {epoch}; "
+                   "train input is now the mmap-packed reader")
+        self.resident = self._maybe_resident()
+        if self.resident is not None:
+            self._make_resident_steps()
 
     def _maybe_resident(self):
         """Stage the train split on the device when configured (and it fits)."""
@@ -707,6 +798,11 @@ class Trainer:
                 self.metric_writer.write(summary)
             for hook in self.hooks:
                 hook(epoch, state, summary)
+            if self._autopack is not None:
+                # finalize() fills the rows this epoch never fetched (a
+                # drop_last tail, a mid-epoch resume), so one streamed
+                # epoch, complete or not, is enough to publish.
+                self._swap_to_packed(epoch)
         if self.checkpointer:
             self.checkpointer.wait()
         return state, best_pckh
@@ -722,3 +818,87 @@ class Trainer:
         return run_evaluation(self.eval_step, self.device, self.val_loader,
                               self.model.cfg.num_joints,
                               sample_dir=sample_dir, epoch=epoch)
+
+
+@dataclass
+class EvalDriver:
+    """The evaluate/infer path: the eval and serving steps only, no Trainer.
+
+    Like the Trainer's, its steps close over one :class:`.state.TrainState`
+    (the model and an optimizer chain, which a checkpoint also holds):
+    :meth:`init_state` returns it as the restore template, a checkpoint
+    restores into it in place, and :meth:`evaluate` and :meth:`predict`
+    take no other object.
+    """
+
+    model: PoseModel
+    cfg: Config
+    loader: Any
+    device: Any = DEFAULT_DEVICE
+
+    def __post_init__(self):
+        self.device = _check_device(self.model, self.device)
+        self.state = create_train_state(self.model, self.cfg)
+        self.eval_step = make_eval_fn(self.model, self.cfg, self.device)
+        self._infer_step = None  # made at the first predict()
+
+    def init_state(self) -> TrainState:
+        """The restore template: the state the driver's steps read."""
+        return self.state
+
+    def _own(self, state):
+        if state is not None and state is not self.state:
+            raise ValueError(
+                "EvalDriver takes its own state (init_state()), restored in "
+                "place: its steps never see another TrainState and would "
+                "score the template's weights")
+
+    def evaluate(self, state: TrainState | None = None,
+                 sample_dir: str | None = None, epoch: int = 0) -> dict:
+        self._own(state)
+        return run_evaluation(self.eval_step, self.device, self.loader,
+                              self.model.cfg.num_joints,
+                              sample_dir=sample_dir, epoch=epoch)
+
+    def predict(self, state: TrainState | None = None) -> np.ndarray:
+        """Original-image predictions over the loader, in dataset order.
+
+        Rows go back through the loader's per-batch index map
+        (:meth:`..data.loader.ShardedLoader.global_index_batches`); pad rows
+        (index -1) are dropped by index.  Coverage is an explicit mask, not a
+        NaN sentinel: a diverged model's NaN coords are written out.
+        """
+        self._own(state)
+        if self._infer_step is None:
+            self._infer_step = make_infer_fn(self.model, self.cfg, self.device)
+        n = len(self.loader.dataset)
+        out_arr = np.zeros((n, self.model.cfg.num_joints, 2), np.float32)
+        covered = np.zeros((n,), bool)
+        gidx = self.loader.global_index_batches(0)
+
+        def scatter(gi, out):
+            preds = out.cpu().numpy()
+            keep = gi >= 0
+            out_arr[gi[keep]] = preds[keep]
+            covered[gi[keep]] = True
+
+        # Reads lag dispatches by _MAX_INFLIGHT: each queued step pins its
+        # input batch in device memory.
+        inflight: deque = deque()
+        count = 0
+        for _, dev_batch in prefetch_pairs(self.loader.epoch(0), self.device):
+            if count < len(gidx):
+                inflight.append((gidx[count], self._infer_step(dev_batch)))
+            count += 1
+            if len(inflight) > _MAX_INFLIGHT:
+                scatter(*inflight.popleft())
+        if count != len(gidx):
+            raise RuntimeError(f"loader produced {count} batches, index map "
+                               f"has {len(gidx)}")
+        while inflight:
+            scatter(*inflight.popleft())
+        if not covered.all():
+            raise RuntimeError(
+                f"predict() left {int((~covered).sum())} of {n} dataset rows "
+                "uncovered (loader/index-map mismatch)")
+        return out_arr

@@ -29,8 +29,10 @@ def _modules():
         dsnt_pose2d_tpu_torch.__path__, "dsnt_pose2d_tpu_torch."))
 
 
-NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "data.loader",
-               "data.mpii", "data.pack", "data.resident", "ops.cuda.calib",
+NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
+               "cli.common", "cli.evaluate", "cli.infer", "cli.train",
+               "data.loader", "data.mpii", "data.pack", "data.prepare",
+               "data.resident", "native", "ops.cuda.calib",
                "train.checkpoint", "train.metrics", "utils.visualization")
 
 
@@ -133,3 +135,46 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(no_cuda):
         Trainer(model=model, cfg=cfg, train_loader=loader)
     trainer = Trainer(model=model, cfg=cfg, train_loader=loader, device="cpu")
     assert trainer.device.type == "cpu" and trainer.resident is not None
+
+
+@pytest.fixture(scope="module")
+def tiny_experiment(tmp_path_factory):
+    """A one-epoch run of a tiny hg1 through the train CLI on the CPU."""
+    from dsnt_pose2d_tpu_torch.cli import train as train_cli
+
+    out = tmp_path_factory.mktemp("cli")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert train_cli.main(TINY_TRAIN + ["--out-dir", str(out), "--device",
+                                            "cpu"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    return out / "e"
+
+
+TINY_TRAIN = ["--base-model", "hg1", "--hg-features", "16", "--input-size",
+              "64", "--dtype", "float32", "--data-source", "synthetic",
+              "--synthetic-size", "8", "--batch-size", "4", "--epochs", "1",
+              "--experiment-id", "e"]
+
+
+@pytest.mark.parametrize("name", ["train", "evaluate", "infer"])
+def test_clis_default_to_cuda_and_raise_without_it(no_cuda, name, tiny_experiment,
+                                                   tmp_path):
+    import importlib
+
+    cli = importlib.import_module(f"dsnt_pose2d_tpu_torch.cli.{name}")
+    assert cli.build_parser().get_default("device") == "cuda"
+    if name == "train":
+        argv = TINY_TRAIN + ["--out-dir", str(tmp_path)]
+    else:
+        argv = ["--model-dir", str(tiny_experiment), "--data-source", "synthetic"]
+        if name == "infer":
+            argv += ["--preds-file", str(tmp_path / "p.mat")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    if name == "train":
+        assert not (tmp_path / "e").exists()
+    else:
+        assert cli.main(argv + ["--device", "cpu"]) == 0

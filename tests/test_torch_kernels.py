@@ -358,3 +358,68 @@ def test_calib_kernel_refuses_misaligned_rows(cuda):
     assert calib.calib_copy(x, s).shape == (4, 8)
     with pytest.raises(ValueError, match="16-byte"):
         calib.calib_copy(torch.zeros(33, device=cuda)[1:].view(4, 8), s)
+
+
+# -- the eval CLI's paths: flip and multi-scale eval --------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.9, 1.1])
+def test_row_shift_kernel_bitwise_at_eval_scales(cuda, scale, monkeypatch):
+    # The two row_shift calls of the eval preprocess at a crop scale other
+    # than 1 (flagship: batch 32, 384-px canvases, 256-px input).  The shear
+    # warp's extents depend on the canvas, the input and the shear bound
+    # only, so the shapes are those of scale 1; the second pass's rows are
+    # the scaled image's.  Held bitwise on the path's inputs and on random
+    # fracs (eval has no shear: its fracs are 0).
+    from dsnt_pose2d_tpu_torch.data import augment
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+    from dsnt_pose2d_tpu_torch.utils.config import DataConfig
+
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_synthetic_mpii(32, 384, seed=0).items()}
+    calls, kernel = [], augment.shift_rows
+
+    def record(rows, starts, fracs, out, stride=1):
+        calls.append((rows.clone(), starts.clone(), fracs.clone(), out, stride))
+        return kernel(rows, starts, fracs, out, stride)
+
+    monkeypatch.setattr(augment, "shift_rows", record)
+    with torch.inference_mode():
+        augment.preprocess_batch(
+            batch["canvases"], batch["coords_px"], batch["mask"],
+            batch["head_length"], batch["canvas_from_orig"], DataConfig(), 256,
+            canvas_margin=batch["canvas_margin"], eval_scale=scale)
+    assert [(tuple(c[0].shape), c[3], c[4]) for c in calls] == [
+        ((12288, 1176), 1158, 3), ((8192, 786), 768, 3)]
+    rng = torch.Generator().manual_seed(int(scale * 10))
+    for rows, starts, fracs, out, stride in calls:
+        random_fracs = torch.rand(fracs.shape, generator=rng).to(cuda)
+        for f in (fracs, random_fracs):
+            got = shift_rows(rows, starts, f, out, stride=stride)
+            exp = shift_rows_reference(rows, starts, f, out, stride=stride)
+            torch.cuda.synchronize()
+            assert torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", ["none", "js"])
+def test_head_kernel_on_a_flipped_batch(cuda, reg):
+    # The flip pass's heatmaps: the kernel against its plain version on a
+    # batch mirrored along its width, and the mirror's x against -x of the
+    # unmirrored batch (the pixel-center grid is symmetric).
+    raw, t = _heads((32, 16, 64, 64), 7, cuda)
+    flipped = raw.flip(-1)
+    t_f = torch.stack([-t[..., 0], t[..., 1]], dim=-1)
+    got_c, got_r = fused_dsnt_head(flipped, t_f, sigma_px=1.0, reg=reg)
+    exp_c, exp_r = fused_dsnt_head_reference(flipped, t_f, sigma_px=1.0, reg=reg)
+    c, r = fused_dsnt_head(raw, t, sigma_px=1.0, reg=reg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_c, exp_c, atol=2e-6, rtol=0)
+    torch.testing.assert_close(got_c, torch.stack([-c[..., 0], c[..., 1]], -1),
+                               atol=2e-6, rtol=0)
+    if reg == "none":
+        assert got_r is exp_r is r is None
+    else:
+        torch.testing.assert_close(got_r, exp_r, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got_r, r, rtol=1e-5, atol=1e-5)

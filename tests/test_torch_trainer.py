@@ -330,12 +330,12 @@ def test_mid_epoch_resume_bitwise(tmp_path, case):
         assert state_c.optimizer.optimizer.param_groups[0]["lr"] == pytest.approx(2e-4)
 
 
-# -- what the port refuses, loudly --------------------------------------------
+# -- what the port refuses, loudly; auto-pack's wrapper ----------------------
 
 
 class _DecodeBacked(ArrayDataset):
-    """A train set that decodes its images (the JAX package's MPIIDataset
-    surface that auto-pack keys on)."""
+    """A train set that decodes its images (the MPIIDataset surface that
+    auto-pack keys on)."""
 
     images_dir = "images"
     canvas_size = 48
@@ -346,16 +346,34 @@ def _tiny_cfg(**data_kw):
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data_kw))
 
 
-def test_auto_pack_of_a_decode_backed_set_raises():
-    cfg = _tiny_cfg()
+def test_auto_pack_of_a_decode_backed_set_raises(tmp_path):
+    # Auto-pack is ported (tests/test_torch_autopack.py runs it against the
+    # JAX Trainer): with auto_pack on, a decode-backed train set is wrapped
+    # and epoch 0 streams it.  What raises, as in the JAX package, is
+    # device_resident=on for it: the split is not array-backed until the
+    # archive is published.
+    from dsnt_pose2d_tpu_torch.data.pack import AutoPackDataset
+
+    cfg = _tiny_cfg(data_dir=str(tmp_path))
     assert cfg.data.auto_pack
-    loader = ShardedLoader(_DecodeBacked(TRAIN), 8, shuffle=True)
     model = build_pose_model(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, host data"):
-        Trainer(model=model, cfg=cfg, train_loader=loader, device="cpu")
+    trainer = Trainer(model=model, cfg=cfg, device="cpu",
+                      train_loader=ShardedLoader(_DecodeBacked(TRAIN), 8,
+                                                 shuffle=True))
+    assert isinstance(trainer.train_loader.dataset, AutoPackDataset)
+    assert trainer._autopack is trainer.train_loader.dataset
+    assert trainer.resident is None
+    assert os.listdir(tmp_path / "packed") == ["train_canvases.npy.building"]
+    with pytest.raises(ValueError, match="not array-backed"):
+        Trainer(model=model, cfg=_tiny_cfg(data_dir=str(tmp_path / "on"),
+                                           device_resident="on"),
+                train_loader=ShardedLoader(_DecodeBacked(TRAIN), 8, shuffle=True),
+                device="cpu")
+    loader = ShardedLoader(_DecodeBacked(TRAIN), 8, shuffle=True)
     trainer = Trainer(model=model, cfg=_tiny_cfg(auto_pack=False),
                       train_loader=loader, device="cpu")
-    assert trainer.resident is None
+    assert trainer.resident is None and trainer._autopack is None
+    assert trainer.train_loader.dataset is loader.dataset
 
 
 def test_run_refuses_another_state():
