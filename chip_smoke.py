@@ -21,7 +21,14 @@ eval pass held against the resident one.  Then the CLIs on the same model
 (``cli`` phase): ``cli.train`` for one epoch, ``cli.evaluate`` without and
 with flip and 3 eval scales (its eval step held against the plain path),
 ``cli.infer`` into a ``.mat``, and the Trainer's auto-pack over a
-decode-backed stand-in.
+decode-backed stand-in.  Last the paper's ablation models: ``resnet``
+(``configs/resnet50_dsnt_2x.json``: ResNet-50 dilated twice at a 448-px
+input, 56x56 heatmaps, batch 32 on 672-px canvases; the serve and train
+steps counted, held against their plain paths and timed, and the head and
+row_shift held and timed at those shapes) and ``heads``
+(``configs/ablation_heads.json``: hg4 with the dsnt+JS, gauss and fc
+heads, train steps and a flip x 3-scale eval step each, and fc through
+``cli.train`` -> ``cli.evaluate``).
 
 Run from the root of a checkout, with no arguments:
 
@@ -109,6 +116,26 @@ TRAINER_CKPT_EVERY_STEPS = 4
 # the counts are equal; the loss is the mean of 3 per-batch losses, in fp64
 # on the streaming side and fp32 on the scan's.
 TRAINER_EVAL_LOSS_RTOL = 1e-5
+# The resnet phase: BASELINE config #5 as its file gives it (ResNet-50,
+# dilate 2, 448-px input: 56x56 heatmaps), on 672-px canvases (1.5x the
+# input, the canvas rule of utils/config.py).
+RESNET_CONFIG = ROOT / "configs" / "resnet50_dsnt_2x.json"
+RESNET_CANVAS = 672
+# The heads phase: BASELINE config #4 (hg4, 256 features, 256 px, bf16) with
+# each head of tools/_ablation_common.py's HEAD_FLAGS, a few train steps
+# and an eval step with flip and 3 scales at batch 32; then fc through the
+# CLIs (2 train steps in one resident dispatch, one eval step).
+HEADS_CONFIG = ROOT / "configs" / "ablation_heads.json"
+HEAD_VARIANTS = {"dsnt": {"output_strat": "dsnt", "reg": "js", "reg_coeff": 1.0},
+                 "gauss": {"output_strat": "gauss"},
+                 "fc": {"output_strat": "fc"}}
+# The train step's metric keys, as the JAX package's train step emits them.
+HEAD_METRICS = {"dsnt": {"loss", "grad_norm", "euclidean", "reg"},
+                "gauss": {"loss", "grad_norm", "mse"},
+                "fc": {"loss", "grad_norm", "euclidean"}}
+HEADS_STEPS = 3
+HEADS_SCALES = (0.9, 1.0, 1.1)
+HEADS_CLI_ROWS = 64
 
 
 def emit(phase: str, **fields):
@@ -491,10 +518,10 @@ def plain_head():
         dsnt_head._launch_fwd, dsnt_head._launch_bwd = kernels
 
 
-def synthetic_batch(dev):
+def synthetic_batch(dev, canvas=CANVAS):
     from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
 
-    data = make_synthetic_mpii(BATCH, CANVAS, seed=0)
+    data = make_synthetic_mpii(BATCH, canvas, seed=0)
     return {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
 
 
@@ -515,6 +542,15 @@ def build_flagship(dev, **model_overrides):
     return cfg, build_pose_model(cfg.model, device=dev, seed=0)
 
 
+def score_convs(net) -> list:
+    """The score convs of a ``PoseNet``'s backbone, stack by stack: one per
+    hourglass stack, the ResNet's single ``score``."""
+    bb = net.backbone
+    if hasattr(bb, "num_stacks"):
+        return [getattr(bb, f"score{i}") for i in range(bb.num_stacks)]
+    return [bb.score]
+
+
 def temper_scores(net, images, target_std=HEATMAP_STD, train=False):
     """Scales each stack's score conv so its heatmap logits have std
     ``target_std`` on these images, in eval or train mode, stack by stack (a
@@ -525,13 +561,11 @@ def temper_scores(net, images, target_std=HEATMAP_STD, train=False):
     of std ~1e5-1e6 at the last one in eval mode, where every softmax row is
     one-hot; train-mode BN renormalises them, to a nearly uniform softmax.
     Tempered, the main path drives the head on real softmax rows."""
-    hg = net.backbone
     buffers = {k: v.clone() for k, v in net.named_buffers()}
     net.train(train)
     with torch.no_grad():
-        for i in range(hg.num_stacks):
-            conv = getattr(hg, f"score{i}")
-            scale = target_std / net(images)[i].std().item()
+        for i, conv in enumerate(score_convs(net)):
+            scale = target_std / net(images).heatmaps[i].std().item()
             conv.weight.mul_(scale)
             conv.bias.mul_(scale)
         for k, v in net.named_buffers():
@@ -622,7 +656,7 @@ def phase_serve(dev):
         pre_gather = preprocess_batch(*pre_args, gather_data, size,
                                       canvas_margin=batch["canvas_margin"])
         gt_back = _to_original_px(pre["coords"], pre["crop_from_orig"], size)
-        heatmaps = model.forward(pre["images"])
+        heatmaps = model.forward(pre["images"]).heatmaps
         max_prob = torch.softmax(heatmaps[-1].flatten(2), -1).amax(-1).mean()
     warp_err = (pre["images"] - pre_gather["images"]).abs().max().item()
     assert warp_err <= WARP_ATOL, f"shear warp vs gather warp: {warp_err}"
@@ -834,9 +868,6 @@ def phase_train(dev, card):
     same step on the plain versions, times, peak memory and a profile."""
     from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
-    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
-    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
-    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
 
     cfg, model = build_flagship(dev)
     assert cfg.optim.optimizer == "rmsprop" and cfg.data.max_rotation_deg > 0
@@ -847,77 +878,20 @@ def phase_train(dev, card):
         images = preprocess_batch(*pre_args, cfg.data, model.input_size,
                                   canvas_margin=batch["canvas_margin"])["images"]
     temper_scores(model.net, images, train=True)
-    start = {k: v.clone() for k, v in model.net.state_dict().items()}
-
-    grab = {"on": False, "heat": [], "dheat": []}
-
-    def capture(module, inputs, heatmaps):
-        # The first step's heatmaps and dL/dheatmaps at the head.
-        if grab["on"]:
-            grab["heat"].append(heatmaps.detach().clone())
-            heatmaps.register_hook(lambda g: grab["dheat"].append(g.detach().clone()))
-
-    model.net.register_forward_hook(capture)
-    train_step = make_train_fn(model, cfg, device=dev)
-    torch.cuda.synchronize()
-
-    kernels.reset_launch_counts()
-    metrics = []
-    with recording_row_shift({}) as row_shift_calls:
-        for i in range(STEPS):
-            grab["on"] = i == 0
-            metrics.append(train_step(batch))
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    expected = {**dict.fromkeys(launches, 0), "dsnt_head_fwd": STEPS,
-                "dsnt_head_bwd": STEPS, "row_shift": 2 * STEPS}
-    if launches != expected:
-        raise AssertionError(f"train launches {launches}, expected {expected}")
-    losses = [m["loss"].item() for m in metrics]
-    assert all(math.isfinite(v) and v > 0 for v in losses), losses
+    run = train_vs_plain(model, cfg, batch, dev, STEPS,
+                         {"dsnt_head_fwd": STEPS, "dsnt_head_bwd": STEPS,
+                          "row_shift": 2 * STEPS}, calls={})
+    train_step, plain_step = run["step"], run["plain_step"]
     assert train_step.state.step == STEPS
-
-    # The same first step with both plain versions forced, same weights and
-    # draws (the draws are a function of (seed, step) only).
-    plain_model = build_pose_model(cfg.model, device=dev, seed=0)
-    plain_model.net.load_state_dict(start)
-    plain_model.net.register_forward_hook(capture)
-    plain_step = make_train_fn(plain_model, cfg, device=dev)
-    grab["on"] = True
-    kernels.reset_launch_counts()
-    with plain_head(), plain_row_shift():
-        ref = plain_step(batch)
-    torch.cuda.synchronize()
-    grab["on"] = False
-    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
-    first = metrics[0]
-    loss_rel = abs(first["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
-    dheat, dheat_ref = grab["dheat"]
-    dheat_err = (dheat - dheat_ref).abs().max().item()
-    dheat_rel = dheat_err / dheat_ref.abs().max().item()
-    norm_rel = (abs(first["grad_norm"].item() - ref["grad_norm"].item())
-                / ref["grad_norm"].item())
-    heat_equal = torch.equal(grab["heat"][0], grab["heat"][1])
-    if (not heat_equal or loss_rel > TRAIN_TOL["loss_rtol"]
-            or dheat_rel > TRAIN_TOL["dheat_rel_to_max"]
-            or norm_rel > TRAIN_TOL["grad_norm_rtol"]):
-        raise AssertionError(
-            f"train step, kernel path vs plain path: heatmaps bitwise "
-            f"equal {heat_equal}, loss rel {loss_rel}, "
-            f"dL/dheatmaps rel {dheat_rel}, grad norm rel {norm_rel}")
-    max_prob = torch.softmax(grab["heat"][0][-1].flatten(2), -1).amax(-1).mean()
+    metrics, first, heat = run["metrics"], run["metrics"][0], run["heat"]
+    max_prob = torch.softmax(heat[-1].flatten(2), -1).amax(-1).mean()
     emit("train_step", config=str(CONFIG.relative_to(ROOT)), batch=BATCH,
-         canvas=CANVAS, steps=STEPS, launches=launches, losses=losses,
-         grad_norms=[m["grad_norm"].item() for m in metrics],
+         canvas=CANVAS, steps=STEPS, launches=run["launches"],
+         losses=run["losses"], grad_norms=[m["grad_norm"].item() for m in metrics],
          euclidean=first["euclidean"].item(), reg=first["reg"].item(),
-         heatmap_logit_std=grab["heat"][0].std().item(),
+         heatmap_logit_std=heat.std().item(),
          last_stack_mean_max_prob=max_prob.item(),
-         plain_path={"loss": ref["loss"].item(), "loss_rel_diff": loss_rel,
-                     "heatmaps_bitwise_equal": heat_equal,
-                     "dheat_max_diff": dheat_err, "dheat_rel_to_max": dheat_rel,
-                     "grad_norm": ref["grad_norm"].item(),
-                     "grad_norm_rel_diff": norm_rel},
-         tolerance=TRAIN_TOL)
+         plain_path=run["plain_path"], tolerance=TRAIN_TOL)
 
     # Interleaved, as for the serve steps: kernel, plain, kernel.
     def plain_train():
@@ -942,11 +916,12 @@ def phase_train(dev, card):
          clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
     instances = profile_step("train_step", lambda: train_step(batch), step_ms[0],
                              card)
-    return {"cfg": cfg, "batch": batch, "pre_args": pre_args, "launches": launches,
+    return {"cfg": cfg, "batch": batch, "pre_args": pre_args,
+            "launches": run["launches"],
             "train_img_per_s": BATCH / step_ms[0] * 1e3,
             "profile_instances": instances,
-            "row_shift_calls": row_shift_calls,
-            "heat": grab["heat"][0], "dheat": dheat, "model": model}
+            "row_shift_calls": run["row_shift_calls"],
+            "heat": heat, "dheat": run["dheat"], "model": model}
 
 
 def phase_head_bwd_on_main_path(train, card):
@@ -1013,6 +988,472 @@ def phase_head_bwd_on_main_path(train, card):
             "GB_per_s": nbytes / times["ms"] / 1e6, "dh_max_abs": scale,
             "vs_train_step_dheat_max_diff": step_err,
             "bitwise_equal_across_launches": True, "layout": "Map64"}
+
+
+def train_vs_plain(model, cfg, batch, dev, steps, expected, calls=None):
+    """``steps`` counted train steps (launches held against ``expected``),
+    then the first step again from the same weights (the draws are a
+    function of (seed, step) only) on the plain head and plain row_shift,
+    held to TRAIN_TOL; returns the metrics, the launches, the row_shift
+    calls (into ``calls``: see :func:`recording_row_shift`; a list if None),
+    the first step's heatmaps and dL/dheatmaps, both steps and the
+    comparison."""
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
+
+    start = {k: v.clone() for k, v in model.net.state_dict().items()}
+    grab = {"on": False, "heat": [], "dheat": []}
+
+    def capture(module, inputs, output):
+        if grab["on"]:
+            grab["heat"].append(output.heatmaps.detach().clone())
+            output.heatmaps.register_hook(
+                lambda g: grab["dheat"].append(g.detach().clone()))
+
+    hook = model.net.register_forward_hook(capture)
+    train_step = make_train_fn(model, cfg, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    metrics = []
+    with recording_row_shift([] if calls is None else calls) as calls:
+        for i in range(steps):
+            grab["on"] = i == 0
+            metrics.append(train_step(batch))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    expected = {**dict.fromkeys(launches, 0), **expected}
+    if launches != expected:
+        raise AssertionError(f"train launches {launches}, expected {expected}")
+    losses = [m["loss"].item() for m in metrics]
+    assert all(math.isfinite(v) and v > 0 for v in losses), losses
+
+    plain_model = build_pose_model(cfg.model, device=dev, seed=0)
+    plain_model.net.load_state_dict(start)
+    plain_hook = plain_model.net.register_forward_hook(capture)
+    plain_step = make_train_fn(plain_model, cfg, device=dev)
+    grab["on"] = True
+    kernels.reset_launch_counts()
+    with plain_head(), plain_row_shift():
+        ref = plain_step(batch)
+    torch.cuda.synchronize()
+    grab["on"] = False
+    hook.remove()
+    plain_hook.remove()
+    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+    first = metrics[0]
+    loss_rel = abs(first["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
+    dheat, dheat_ref = grab["dheat"]
+    dheat_err = (dheat - dheat_ref).abs().max().item()
+    dheat_rel = dheat_err / dheat_ref.abs().max().item()
+    norm_rel = (abs(first["grad_norm"].item() - ref["grad_norm"].item())
+                / ref["grad_norm"].item())
+    heat_equal = torch.equal(grab["heat"][0], grab["heat"][1])
+    if (not heat_equal or loss_rel > TRAIN_TOL["loss_rtol"]
+            or dheat_rel > TRAIN_TOL["dheat_rel_to_max"]
+            or norm_rel > TRAIN_TOL["grad_norm_rtol"]):
+        raise AssertionError(
+            f"train step, kernel path vs plain path: heatmaps bitwise "
+            f"equal {heat_equal}, loss rel {loss_rel}, "
+            f"dL/dheatmaps rel {dheat_rel}, grad norm rel {norm_rel}")
+    return {"metrics": metrics, "losses": losses, "launches": launches,
+            "row_shift_calls": calls, "heat": grab["heat"][0], "dheat": dheat,
+            "step": train_step, "plain_step": plain_step,
+            "plain_path": {"loss": ref["loss"].item(), "loss_rel_diff": loss_rel,
+                           "heatmaps_bitwise_equal": heat_equal,
+                           "dheat_max_diff": dheat_err,
+                           "dheat_rel_to_max": dheat_rel,
+                           "grad_norm": ref["grad_norm"].item(),
+                           "grad_norm_rel_diff": norm_rel}}
+
+
+def eval_vs_plain(eval_step, batch):
+    """The eval step against itself with the head's and row_shift's plain
+    versions forced (the same step object), held to STEP_TOL."""
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+
+    out = eval_step(batch)
+    kernels.reset_launch_counts()
+    with plain_head(), plain_row_shift():
+        ref = eval_step(batch)
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+    loss_rel = abs(out["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
+    pred_err = (out["pred_orig"] - ref["pred_orig"]).abs().max().item()
+    counts_equal = torch.equal(out["pckh_correct"], ref["pckh_correct"])
+    if (loss_rel > STEP_TOL["loss_rtol"] or pred_err > STEP_TOL["pred_orig_atol_px"]
+            or not counts_equal):
+        raise AssertionError(f"eval step vs plain path: loss rel {loss_rel}, "
+                             f"pred_orig max err {pred_err} px, counts equal "
+                             f"{counts_equal}")
+    return {"loss": out["loss"].item(), "loss_rel_diff": loss_rel,
+            "pred_orig_max_diff_px": pred_err, "pckh_counts_equal": True}
+
+
+def peak_memory(fn) -> int:
+    """Peak device memory (bytes) of one ``fn()`` call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def bwd_layouts(instances) -> set:
+    """The layouts of the head backward's instances in a profile
+    (``dsnt_head_bwd_kernel<1, false, StagedRow>`` -> ``StagedRow``)."""
+    return {name.rsplit(", ", 1)[-1].rstrip(">") for name in instances
+            if name.startswith("dsnt_head_bwd_kernel<")}
+
+
+def head_on_rows(heat, t, reg, preact, ceiling, gc=None, dheat=None):
+    """The head's forward (and, given the coords' cotangent ``gc``, its
+    backward) on a path's own heatmaps: held against the plain versions
+    (the backward also against the step's ``dheat`` and bitwise across two
+    launches), timed, and stated against the bytes bound and the ceiling."""
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
+                                                fused_dsnt_head_bwd,
+                                                fused_dsnt_head_bwd_reference,
+                                                fused_dsnt_head_reference)
+
+    *lead, h, w = heat.shape
+    n = math.prod(lead)
+    kw = dict(sigma_px=1.0, reg=reg, preact=preact)
+    err = max(compare_head(heat, t, reg, preact, 0.0))
+    times = timing.kernel_times(lambda: fused_dsnt_head(heat, t, **kw),
+                                lambda: fused_dsnt_head_reference(heat, t, **kw))
+    nbytes, nops = head_bytes_ops(n, h * w, reg)
+    b_ms, by = bound_ms(nbytes, nops)
+    fwd = {"rows": n, "hw": h * w, "max_abs_err": err, **times, "bound_ms": b_ms,
+           "bound_by": by, "library_ms": None, "bytes": nbytes,
+           "frac_of_ceiling": nbytes / times["ms"] / 1e6 / ceiling}
+    if gc is None:
+        return fwd, None
+    got = fused_dsnt_head_bwd(heat, t, gc, None, **kw)
+    again = fused_dsnt_head_bwd(heat, t, gc, None, **kw)
+    exp = fused_dsnt_head_bwd_reference(heat, t, gc, None, **kw)
+    torch.cuda.synchronize()
+    assert_dh_close(got, exp)
+    if not torch.equal(got, again):
+        raise AssertionError("two launches of the head backward differ")
+    step_err = (got - dheat).abs().max().item()
+    assert step_err <= TRAIN_TOL["dheat_rel_to_max"] * exp.abs().max().item(), step_err
+    times = timing.kernel_times(
+        lambda: fused_dsnt_head_bwd(heat, t, gc, None, **kw),
+        lambda: fused_dsnt_head_bwd_reference(heat, t, gc, None, **kw))
+    nbytes = 8 * n * h * w + 4 * 4 * n      # raw, dh; targets and gc
+    b_ms, by = bound_ms(nbytes, HEAD_BWD_FLOPS_PER_ELEMENT[reg] * n * h * w)
+    bwd = {"rows": n, "hw": h * w, "max_abs_err": (got - exp).abs().max().item(),
+           **times, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+           "bytes": nbytes, "frac_of_ceiling": nbytes / times["ms"] / 1e6 / ceiling,
+           "vs_train_step_dheat_max_diff": step_err,
+           "bitwise_equal_across_launches": True}
+    return fwd, bwd
+
+
+def phase_resnet(dev, card, ceiling):
+    """BASELINE config #5 (ResNet-50, dilate 2, 448 px, bf16, DSNT without
+    a regularizer) at batch 32 on 672-px canvases: the eval and infer steps
+    and the train step, counted and held against their plain paths, timed;
+    the head at 512 rows of 56x56 (forward AnyMap, backward StagedRow) and
+    row_shift at the 448-px calls, held and timed on the path's inputs."""
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.ops import euclidean_losses
+    from dsnt_pose2d_tpu_torch.ops.cuda import fused_dsnt_head
+    from dsnt_pose2d_tpu_torch.train.loop import make_eval_fn, make_infer_fn
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_from_json(RESNET_CONFIG.read_text())
+    m = cfg.model
+    assert (m.base, m.dilate, m.truncate, m.resolved_input_size, m.dtype,
+            m.output_strat, m.preact, m.reg, m.use_pallas) == (
+        "resnet50", 2, 0, 448, "bfloat16", "dsnt", "softmax", "none", True), m
+    assert cfg.data.warp_method == "shear" and cfg.train.batch_size == BATCH
+    model = build_pose_model(m, device=dev, seed=0)
+    side = model.heatmap_size
+    assert side == 56, side
+    batch = synthetic_batch(dev, RESNET_CANVAS)
+    pre_args = (batch["canvases"], batch["coords_px"], batch["mask"],
+                batch["head_length"], batch["canvas_from_orig"])
+    with torch.inference_mode():
+        pre = preprocess_batch(*pre_args, cfg.data, model.input_size,
+                               canvas_margin=batch["canvas_margin"])
+    temper_scores(model.net, pre["images"], train=False)
+    eval_step = make_eval_fn(model, cfg, device=dev)
+    infer_step = make_infer_fn(model, cfg, device=dev)
+    torch.cuda.synchronize()
+
+    # Serve: the counted eval and infer steps, then the eval step against
+    # the plain path.
+    kernels.reset_launch_counts()
+    with recording_row_shift([]) as serve_calls:
+        outs = [eval_step(batch) for _ in range(STEPS)]
+        served = [infer_step(batch) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    serve_launches = kernels.launch_counts()
+    expected = {**dict.fromkeys(serve_launches, 0), "dsnt_head_fwd": 3 * STEPS,
+                "row_shift": 4 * STEPS}
+    if serve_launches != expected:
+        raise AssertionError(f"resnet serve launches {serve_launches}, "
+                             f"expected {expected}")
+    pred = outs[0]["pred_orig"]
+    assert pred.shape == (BATCH, 16, 2) and torch.isfinite(pred).all()
+    for s in served:
+        assert torch.equal(s, pred), "infer step disagrees with eval step"
+    serve_vs_plain = eval_vs_plain(eval_step, batch)
+    with torch.inference_mode():
+        heat = model.forward(pre["images"]).heatmaps
+    assert heat.shape == (1, BATCH, 16, side, side), heat.shape
+    infer_ms = timing.time_ms(lambda: infer_step(batch), spread=True)
+    eval_ms = timing.time_ms(lambda: eval_step(batch), spread=True)
+    serve_peak = peak_memory(lambda: infer_step(batch))
+
+    # The head's forward on the eval step's own 512 rows of 56x56.
+    t = pre["coords"][None]
+    fwd, _ = head_on_rows(heat, t, "none", m.preact, ceiling)
+
+    # Train: tempered in train mode, counted, against the plain path.
+    temper_scores(model.net, pre["images"], train=True)
+    train = train_vs_plain(model, cfg, batch, dev, STEPS,
+                           {"dsnt_head_fwd": STEPS, "dsnt_head_bwd": STEPS,
+                            "row_shift": 2 * STEPS})
+    assert set(train["metrics"][0]) == HEAD_METRICS["dsnt"]
+    train_step = train["step"]
+    train_ms = timing.time_ms(lambda: train_step(batch), spread=True)
+    train_peak = peak_memory(lambda: train_step(batch))
+    instances = profile_step("resnet_train_step", lambda: train_step(batch),
+                             train_ms[0], card)
+    if bwd_layouts(instances) != {"StagedRow"}:
+        raise AssertionError(f"the ResNet train step's head backward ran in "
+                             f"{bwd_layouts(instances)}, not StagedRow")
+
+    # The head's backward on the train step's first heatmaps, with the
+    # cotangent of the step's loss (reg none: the coords' only).
+    from dsnt_pose2d_tpu_torch.data.augment import sample_train_draws
+    from dsnt_pose2d_tpu_torch.train.state import step_seed
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(step_seed(cfg.train.seed, 0))
+    with torch.no_grad():
+        pre_t = preprocess_batch(*pre_args, cfg.data, model.input_size, train=True,
+                                 canvas_margin=batch["canvas_margin"],
+                                 draws=sample_train_draws(BATCH, cfg.data, gen))
+    heat_t, t_t = train["heat"], pre_t["coords"][None]
+    mask = pre_t["mask"][None]
+    x = heat_t.clone().requires_grad_(True)
+    coords, _ = fused_dsnt_head(x, t_t, sigma_px=m.hm_sigma, reg="none",
+                                preact=m.preact)
+    loss = ((euclidean_losses(coords, t_t) * mask).sum(dim=(1, 2))
+            / mask.sum(dim=(1, 2)).clamp_min(1.0)).sum()
+    (gc_,) = torch.autograd.grad(loss, (coords,))
+    _, bwd = head_on_rows(heat_t, t_t, "none", m.preact, ceiling, gc=gc_,
+                          dheat=train["dheat"])
+    bwd["layout"] = "StagedRow"
+    fwd["layout"] = "AnyMap"
+
+    recorded = {"resnet_serve": {(*c[0].shape, c[3]): c for c in serve_calls[:2]},
+                "resnet_train": {(*c[0].shape, c[3]): c
+                                 for c in train["row_shift_calls"][:2]}}
+    shapes = {p: assert_row_shift_bitwise(p, list(calls.values()))
+              for p, calls in recorded.items()}
+    shift, shift_lib_err = phase_row_shift_timing(recorded, ceiling)
+    launches = {k: serve_launches[k] + train["launches"][k] for k in serve_launches}
+    emit("resnet", card=card, config=str(RESNET_CONFIG.relative_to(ROOT)),
+         batch=BATCH, canvas=RESNET_CANVAS, heatmap_side=side, steps=STEPS,
+         launches={"serve": serve_launches, "train": train["launches"]},
+         serve={"loss": outs[0]["loss"].item(), "vs_plain": serve_vs_plain,
+                "tolerance": STEP_TOL},
+         train={"losses": train["losses"],
+                "grad_norms": [mm["grad_norm"].item() for mm in train["metrics"]],
+                "metric_keys": sorted(train["metrics"][0]),
+                "vs_plain": train["plain_path"], "tolerance": TRAIN_TOL},
+         heatmap_logit_std=heat.std().item(),
+         infer_ms=infer_ms[0], infer_img_per_s=BATCH / infer_ms[0] * 1e3,
+         eval_ms=eval_ms[0], eval_img_per_s=BATCH / eval_ms[0] * 1e3,
+         train_ms=train_ms[0], train_img_per_s=BATCH / train_ms[0] * 1e3,
+         spread_min_max_ms={"infer": infer_ms[1:], "eval": eval_ms[1:],
+                            "train": train_ms[1:]},
+         peak_mem_bytes={"infer": serve_peak, "train": train_peak},
+         head_fwd_56=fwd, head_bwd_56=bwd, train_bwd_layouts=sorted(bwd_layouts(instances)),
+         row_shift={"shapes": shapes, "by_path": shift, "library_err": shift_lib_err,
+                    "bitwise_equal": True},
+         ceiling_GB_per_s=ceiling,
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    del model, eval_step, infer_step, train, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fwd": fwd, "bwd": bwd, "row_shift": shift,
+            "max_row_shift_err": 0.0}
+
+
+def heads_config(variant):
+    """BASELINE config #4 with one head of the ablation, eval with flip and
+    3 scales."""
+    import dataclasses
+
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    cfg = config_from_json(HEADS_CONFIG.read_text())
+    m = cfg.model
+    assert (m.base, m.hg_features, m.resolved_input_size, m.dtype, m.use_pallas) == (
+        "hg4", 256, 256, "bfloat16", True), m
+    assert cfg.train.batch_size == BATCH and cfg.data.warp_method == "shear"
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(m, **HEAD_VARIANTS[variant]),
+        train=dataclasses.replace(cfg.train, flip_eval=True,
+                                  eval_scales=HEADS_SCALES))
+
+
+def phase_heads(dev, card):
+    """The head ablation on hg4: for dsnt+js, gauss and fc, HEADS_STEPS
+    train steps and an eval step with flip and 3 scales at batch 32,
+    counted; the eval step and the first train step against the plain
+    path; row_shift bitwise on the calls the steps made; step times, peak
+    memory and a train-step profile; then fc through cli.train ->
+    cli.evaluate."""
+    import io
+    import tempfile
+
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.cli import evaluate as evaluate_cli
+    from dsnt_pose2d_tpu_torch.cli import train as train_cli
+    from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.loop import EvalDriver, make_eval_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = synthetic_batch(dev)
+    out, total = {}, {}
+    # Per eval step with flip and 3 scales: 3 + 2 * 2 head forwards (dsnt
+    # only) and 2 row_shift a scale; per train step 1 forward and 1 backward
+    # (dsnt only) and 2 row_shift.
+    n_scales = len(HEADS_SCALES)
+    for variant in HEAD_VARIANTS:
+        cfg = heads_config(variant)
+        dsnt = variant == "dsnt"
+        model = build_pose_model(cfg.model, device=dev, seed=0)
+        if dsnt:
+            with torch.no_grad():
+                images = preprocess_batch(
+                    batch["canvases"], batch["coords_px"], batch["mask"],
+                    batch["head_length"], batch["canvas_from_orig"], cfg.data,
+                    model.input_size, canvas_margin=batch["canvas_margin"])["images"]
+            temper_scores(model.net, images, train=True)
+        per_train = {"dsnt_head_fwd": int(dsnt), "dsnt_head_bwd": int(dsnt),
+                     "row_shift": 2}
+        train = train_vs_plain(model, cfg, batch, dev, HEADS_STEPS,
+                               {k: HEADS_STEPS * v for k, v in per_train.items()})
+        keys = set(train["metrics"][0])
+        if keys != HEAD_METRICS[variant]:
+            raise AssertionError(f"{variant} train metrics {keys}, the JAX "
+                                 f"package's {HEAD_METRICS[variant]}")
+        eval_step = make_eval_fn(model, cfg, device=dev)
+        kernels.reset_launch_counts()
+        with recording_row_shift([]) as eval_calls:
+            ev = eval_step(batch)
+        torch.cuda.synchronize()
+        eval_launches = kernels.launch_counts()
+        expected = {**dict.fromkeys(eval_launches, 0), "row_shift": 2 * n_scales,
+                    "dsnt_head_fwd": (3 + 2 * (n_scales - 1)) if dsnt else 0}
+        if eval_launches != expected:
+            raise AssertionError(f"{variant} eval launches {eval_launches}, "
+                                 f"expected {expected}")
+        pred = ev["pred_orig"]
+        assert pred.shape == (BATCH, 16, 2) and torch.isfinite(pred).all()
+        assert math.isfinite(ev["loss"].item())
+        vs_plain = eval_vs_plain(eval_step, batch)
+        shapes = assert_row_shift_bitwise(
+            f"heads_{variant}", train["row_shift_calls"][:2] + eval_calls)
+        train_step = train["step"]
+        train_ms = timing.time_ms(lambda: train_step(batch), spread=True)
+        eval_ms = timing.time_ms(lambda: eval_step(batch), spread=True)
+        peak = peak_memory(lambda: train_step(batch))
+        profile_step(f"hg4_{variant}_train_step", lambda: train_step(batch),
+                     train_ms[0], card)
+        for k, v in train["launches"].items():
+            total[k] = total.get(k, 0) + v + eval_launches.get(k, 0)
+        out[variant] = {
+            "flags": HEAD_VARIANTS[variant], "losses": train["losses"],
+            "metric_keys": sorted(keys),
+            "metrics_step0": {k: v.item() for k, v in train["metrics"][0].items()},
+            "train_vs_plain": train["plain_path"],
+            "eval_loss": ev["loss"].item(), "eval_vs_plain": vs_plain,
+            "launches": {"train": train["launches"], "eval_flip_scales": eval_launches},
+            "row_shift_bitwise_shapes": shapes,
+            "train_ms": train_ms[0], "train_img_per_s": BATCH / train_ms[0] * 1e3,
+            "eval_flip_scales_ms": eval_ms[0],
+            "eval_flip_scales_img_per_s": BATCH / eval_ms[0] * 1e3,
+            "spread_min_max_ms": {"train": train_ms[1:], "eval": eval_ms[1:]},
+            "peak_mem_bytes": peak}
+        del model, train, train_step, eval_step, ev
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # fc through the CLIs: cli.train (one epoch: 2 resident steps in one
+    # dispatch, one eval step) -> cli.evaluate, whose PCKh must equal the
+    # train run's val_pckh.
+    drivers = []
+
+    class RecordingDriver(EvalDriver):
+        def evaluate(self, *args, **kw):
+            result = super().evaluate(*args, **kw)
+            drivers.append(result)
+            return result
+
+    data = ["--data-source", "synthetic", "--synthetic-size", str(HEADS_CLI_ROWS),
+            "--canvas-size", str(CANVAS), "--device", dev.type]
+    saved = evaluate_cli.EvalDriver
+    evaluate_cli.EvalDriver = RecordingDriver
+    cli_launches = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="dsnt_heads_") as tmp:
+            for name, argv in (
+                    ("train", ["--base-model", "hg4", "--output-strat", "fc",
+                               "--batch-size", str(BATCH), "--epochs", "1",
+                               "--device-resident", "on", "--steps-per-dispatch", "2",
+                               "--out-dir", tmp, "--experiment-id", "fc"]),
+                    ("evaluate", ["--model-dir", os.path.join(tmp, "fc")])):
+                main = train_cli.main if name == "train" else evaluate_cli.main
+                kernels.reset_launch_counts()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    assert main(argv + data) == 0
+                torch.cuda.synchronize()
+                cli_launches[name] = kernels.launch_counts()
+            with open(os.path.join(tmp, "fc", "metrics.jsonl")) as f:
+                summary = [r for r in map(json.loads, f) if "step" not in r][-1]
+    finally:
+        evaluate_cli.EvalDriver = saved
+    # row_shift: 2 a step; the train run's steps and its one eval pass, then
+    # evaluate's pass over the val split (cli.common.make_datasets' size).
+    eval_steps = -(-max(HEADS_CLI_ROWS // 4, 8) // BATCH)
+    expected = {"train": 2 * (HEADS_CLI_ROWS // BATCH + eval_steps),
+                "evaluate": 2 * eval_steps}
+    for name, counts in cli_launches.items():
+        if (counts["row_shift"], counts["dsnt_head_fwd"], counts["dsnt_head_bwd"]) != (
+                expected[name], 0, 0):
+            raise AssertionError(f"heads cli {name} launches {counts}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    (result,) = drivers
+    if result["pckh"] != summary["val_pckh"]:
+        raise AssertionError(f"fc: evaluate's PCKh {result['pckh']} != the "
+                             f"train run's {summary['val_pckh']}")
+    emit("heads", card=card, config=str(HEADS_CONFIG.relative_to(ROOT)), batch=BATCH,
+         canvas=CANVAS, steps=HEADS_STEPS, eval_scales=list(HEADS_SCALES),
+         flip_eval=True, per_head=out,
+         fc_cli={"launches": cli_launches, "val_pckh": summary["val_pckh"],
+                 "evaluate_pckh": result["pckh"], "round_trip_equal": True},
+         tolerance={"eval": STEP_TOL, "train": TRAIN_TOL},
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return total
 
 
 def calib_fns(kind):
@@ -1712,9 +2153,12 @@ def main():
         bench_launches[name] += n
     trainer_launches = phase_trainer(dev, card, train_img_per_s)
     cli_launches = phase_cli(dev, card)
+    resnet = phase_resnet(dev, card, ceiling)
+    heads_launches = phase_heads(dev, card)
     paths = {"serve": serve_launches, "train": train_launches,
              "bench": bench_launches, "trainer": trainer_launches,
-             "cli": cli_launches}
+             "cli": cli_launches, "resnet": resnet["launches"],
+             "heads": heads_launches}
 
     def launches(name):
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -1724,21 +2168,29 @@ def main():
         return nbytes / ms / 1e6 / ceiling
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def at_56(r):   # the ResNet-50 2x path's 512 rows of 56x56
+        return {k: r[k] for k in (*keys, "rows", "layout", "frac_of_ceiling")}
+
     head_bytes = sum(c["bytes"] for c in head["per_call"].values())
     shift_bytes = sum(c["bytes"] for c in shift["serve"]["per_call"].values())
     entries = [
         {"name": "dsnt_head_fwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:184",
-         **launches("dsnt_head_fwd"), "max_abs_err": head["max_abs_err"],
+         **launches("dsnt_head_fwd"),
+         "max_abs_err": max(head["max_abs_err"], resnet["fwd"]["max_abs_err"]),
          **{k: head[k] for k in keys},
-         "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"])},
+         "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"]),
+         "at_56x56": at_56(resnet["fwd"])},
         {"name": "dsnt_head_bwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
-         **launches("dsnt_head_bwd"), "max_abs_err": bwd["max_abs_err"],
+         **launches("dsnt_head_bwd"),
+         "max_abs_err": max(bwd["max_abs_err"], resnet["bwd"]["max_abs_err"]),
          **{k: bwd[k] for k in keys}, "layout": bwd["layout"],
-         "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"])},
+         "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"]),
+         "at_56x56": at_56(resnet["bwd"])},
         # ms and the other times: the two calls of one serve step; those of
         # one train step are under by_path.
         {"name": "row_shift", "route": "cuda",
@@ -1746,7 +2198,8 @@ def main():
          "replaces": "dsnt_pose2d_tpu/ops/pallas/row_shift.py:57",
          **launches("row_shift"), "max_abs_err": shift_err,
          **{k: shift["serve"][k] for k in keys},
-         "by_path": {p: {k: v[k] for k in keys} for p, v in shift.items()},
+         "by_path": {p: {k: v[k] for k in keys}
+                     for p, v in {**shift, **resnet["row_shift"]}.items()},
          "legacy_check": shift_legacy,
          "frac_of_ceiling": frac_of_ceiling(shift_bytes, shift["serve"]["ms"])},
     ]

@@ -1,10 +1,12 @@
-"""Model factory (port of ``dsnt_pose2d_tpu/models/factory.py``, hourglass bases).
+"""Model factory (port of ``dsnt_pose2d_tpu/models/factory.py``: the
+hourglass and ResNet bases; the ViT is not ported yet).
 
 :class:`PoseModel` bundles the ``nn.Module`` with the config's loss and
 decode functions, the same surface as the JAX package's ``PoseModel``.
 Weights come from a seeded :class:`torch.Generator` with flax's default
-initializers (LeCun-normal conv kernels, zero biases, unit BN scales), or
-are converted from flax variables by :mod:`.from_jax`.
+initializers (LeCun-normal conv kernels, zero biases, unit BN scales, the
+fc head's kernel normal with std 1e-3), or are converted from flax
+variables by :mod:`.from_jax`.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..utils.config import ModelConfig
-from .heads import decode_coords, pose_loss
+from .heads import PoseOutput, decode_coords, pose_loss
 from .hourglass import HourglassNet
+from .resnet import RESNET_SPECS, ResNetPose
 
 # flax's lecun_normal draws from a normal truncated at 2 std, rescaled by
 # this factor so the variance is exactly 1 / fan_in.
@@ -26,28 +29,46 @@ _TRUNC_STD = 0.87962566103423978
 
 
 class PoseNet(nn.Module):
-    """Backbone by config; returns raw heatmaps ``(S, B, J, H, W)`` in fp32."""
+    """Backbone by config (+ the fc strategy's per-joint linear head);
+    returns a :class:`.heads.PoseOutput` of raw ``(S, B, J, H, W)`` fp32
+    heatmaps (and ``(S, B, J, 2)`` fc coords)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not cfg.base.startswith("hg"):
-            raise NotImplementedError(
-                f"base={cfg.base!r} is not ported yet (ROADMAP Queue 1, "
-                "ResNet / ViT)")
-        if cfg.output_strat != "dsnt":
-            raise NotImplementedError(
-                f"output_strat={cfg.output_strat!r} is not ported yet "
-                "(ROADMAP Queue 1, the gauss and fc heads)")
         if cfg.remat:
             raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP Queue 1, remat)")
+                "remat=True is not ported yet (ROADMAP Queue 1, ViT and remat)")
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        self.backbone = HourglassNet(
-            num_stacks=int(cfg.base[2:]), num_joints=cfg.num_joints,
-            features=cfg.hg_features, depth=cfg.hg_depth, dtype=dtype)
+        if cfg.base.startswith("hg"):
+            self.backbone = HourglassNet(
+                num_stacks=int(cfg.base[2:]), num_joints=cfg.num_joints,
+                features=cfg.hg_features, depth=cfg.hg_depth, dtype=dtype)
+        elif cfg.base in RESNET_SPECS:
+            self.backbone = ResNetPose(
+                arch=cfg.base, num_joints=cfg.num_joints, dilate=cfg.dilate,
+                truncate=cfg.truncate, dtype=dtype)
+        else:
+            raise NotImplementedError(
+                f"base={cfg.base!r} is not ported yet (ROADMAP Queue 1, ViT "
+                "and remat)")
+        self.fc_head_kernel = self.fc_head_bias = None
+        if cfg.output_strat == "fc":
+            side = self.backbone.output_side(cfg.resolved_input_size)
+            # One (H*W -> 2) projection per joint, shared across stacks.
+            self.fc_head_kernel = nn.Parameter(
+                torch.zeros(cfg.num_joints, side * side, 2))
+            self.fc_head_bias = nn.Parameter(torch.zeros(cfg.num_joints, 2))
 
-    def forward(self, images):
-        return self.backbone(images)
+    def forward(self, images) -> PoseOutput:
+        raw = self.backbone(images)
+        if self.fc_head_kernel is None:
+            return PoseOutput(raw)
+        s, b, j, h, w = raw.shape
+        # The flat maps in fp32, as the JAX package takes them (an fp64
+        # model's too), then in the head's own dtype.
+        flat = raw.reshape(s, b, j, h * w).float().to(self.fc_head_kernel.dtype)
+        fc = torch.einsum("sbjp,jpc->sbjc", flat, self.fc_head_kernel)
+        return PoseOutput(raw, fc + self.fc_head_bias)
 
 
 @dataclass(frozen=True)
@@ -68,21 +89,33 @@ class PoseModel:
         """Side of the square model input (the JAX ``image_specs.size``)."""
         return self.cfg.resolved_input_size
 
-    def forward(self, images, train: bool = False):
+    @property
+    def heatmap_size(self) -> int:
+        """Output heatmap side implied by base/dilate/truncate (the JAX
+        package's formula)."""
+        size = self.cfg.resolved_input_size
+        if self.cfg.base.startswith("hg"):
+            return size // 4
+        if self.cfg.base.startswith("vit"):
+            return size // 8
+        return size // (32 // (2 ** (self.cfg.dilate + self.cfg.truncate)))
+
+    def forward(self, images, train: bool = False) -> PoseOutput:
         if self.net.training != train:
             self.net.train(train)
         return self.net(images)
 
-    def loss(self, heatmaps, target_coords, mask):
-        return pose_loss(heatmaps, target_coords, mask, self.cfg)
+    def loss(self, output, target_coords, mask):
+        return pose_loss(output, target_coords, mask, self.cfg)
 
-    def decode(self, heatmaps):
-        return decode_coords(heatmaps, self.cfg)
+    def decode(self, output):
+        return decode_coords(output, self.cfg)
 
 
 @torch.no_grad()
 def init_weights(net: nn.Module, generator: torch.Generator):
-    """flax-default initialization drawn from ``generator`` (CPU tensors)."""
+    """flax-default initialization drawn from ``generator`` (CPU tensors):
+    the convs in module order, then the fc head."""
     for mod in net.modules():
         if isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
@@ -93,6 +126,9 @@ def init_weights(net: nn.Module, generator: torch.Generator):
                 mod.bias.zero_()
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
+    if getattr(net, "fc_head_kernel", None) is not None:
+        net.fc_head_kernel.normal_(0.0, 1e-3, generator=generator)
+        net.fc_head_bias.zero_()
 
 
 def build_pose_model(cfg: ModelConfig, device=DEFAULT_DEVICE, seed: int = 0,
@@ -100,7 +136,7 @@ def build_pose_model(cfg: ModelConfig, device=DEFAULT_DEVICE, seed: int = 0,
     """Build the model for ``cfg`` on ``device``, in eval mode.
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` unless a
-    ``state_dict`` (e.g. from :func:`.from_jax.hourglass_from_jax`) is given,
+    ``state_dict`` (e.g. from :func:`.from_jax.pose_net_from_jax`) is given,
     which is loaded with ``strict=True``.
     """
     dev = resolve_device(device)

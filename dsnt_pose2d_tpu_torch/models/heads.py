@@ -1,17 +1,26 @@
-"""Output strategy ``dsnt``: loss and coordinate decoding
-(port of the dsnt branch of ``dsnt_pose2d_tpu/models/heads.py``).
+"""Output strategies: DSNT, heatmap matching (``gauss``) and FC regression
+(port of ``dsnt_pose2d_tpu/models/heads.py``).
 
-The backbone emits per-stack raw score maps ``(S, B, J, H, W)``.  The dsnt
-head activates them, takes the soft-argmax, and adds an optional
-distribution regularizer; the loss is a visibility-masked mean per stack,
-summed (or averaged) over stacks, and only the last stack is decoded.  The
-hot path runs as the fused DSNT-head kernel when :func:`use_cuda_head`
-allows it.  The ``gauss`` and ``fc`` strategies are not ported yet.
+The backbone emits per-stack raw score maps ``(S, B, J, H, W)``
+(:class:`PoseOutput`):
+
+- ``dsnt``: activate, soft-argmax, an optional distribution regularizer on
+  the activated maps; the hot path runs as the fused DSNT-head kernel when
+  :func:`use_cuda_head` allows it;
+- ``gauss``: pixelwise MSE of the raw fp32 maps against a Gaussian rendered
+  at the target (peak 1 unless ``gauss_target_normalize``); decoded by the
+  argmax with a quarter-pixel offset (:func:`..ops.heatmaps_to_coords`);
+- ``fc``: a per-joint linear map of the flat raw map to (x, y)
+  (``PoseOutput.fc_coords``), with the coordinate loss on it.
+
+The loss is a visibility-masked mean per stack, summed (or averaged) over
+stacks; only the last stack is decoded.
 """
 
 from __future__ import annotations
 
 import warnings
+from dataclasses import dataclass
 
 import torch
 
@@ -20,10 +29,13 @@ from ..ops.cuda.dsnt_head import PREACT_KINDS, fused_dsnt_head
 from ..utils.config import ModelConfig
 
 
-def _not_ported(cfg: ModelConfig):
-    return NotImplementedError(
-        f"output_strat={cfg.output_strat!r} is not ported yet (ROADMAP Queue 1, "
-        "the gauss and fc heads)")
+@dataclass
+class PoseOutput:
+    """Raw model outputs: ``heatmaps`` (S, B, J, H, W) unactivated scores;
+    ``fc_coords`` (S, B, J, 2) for the fc strategy, else None."""
+
+    heatmaps: torch.Tensor
+    fc_coords: torch.Tensor | None = None
 
 
 def activate_heatmaps(raw: torch.Tensor, preact: str,
@@ -32,9 +44,6 @@ def activate_heatmaps(raw: torch.Tensor, preact: str,
     raw = raw.to(torch.float32)
     if preact == "thresholded_softmax":
         return ops.thresholded_softmax(raw, threshold)
-    if preact not in ops.HEATMAP_ACTIVATIONS:
-        raise NotImplementedError(f"preact={preact!r} is not ported yet "
-                                  "(ROADMAP Queue 1, the remaining ops)")
     return ops.HEATMAP_ACTIVATIONS[preact](raw)
 
 
@@ -48,11 +57,7 @@ def _reg_losses(act, t, cfg: ModelConfig):
 
 
 def _coord_losses(coords, t, cfg: ModelConfig):
-    if cfg.coord_loss != "euclidean":
-        raise NotImplementedError(
-            f"coord_loss={cfg.coord_loss!r} is not ported yet "
-            "(ROADMAP Queue 1, the remaining ops)")
-    return ops.euclidean_losses(coords, t)
+    return ops.COORD_LOSSES[cfg.coord_loss](coords, t)
 
 
 def _masked_mean_keep_stacks(per_joint, mask):
@@ -63,20 +68,40 @@ def _masked_mean_keep_stacks(per_joint, mask):
     return num / den
 
 
-def pose_loss(heatmaps: torch.Tensor, target_coords: torch.Tensor,
+def _stack_reduce(per_stack, cfg: ModelConfig):
+    return per_stack.sum() if cfg.stack_loss == "sum" else per_stack.mean()
+
+
+def pose_loss(output: PoseOutput, target_coords: torch.Tensor,
               mask: torch.Tensor, cfg: ModelConfig):
-    """Total loss + aux dict for raw ``(S, B, J, H, W)`` heatmaps.
+    """Total loss + aux dict (per-strategy diagnostics).
 
     Args:
-        heatmaps: raw per-stack score maps.
+        output: the model's raw outputs.
         target_coords: (B, J, 2) normalized targets.
         mask: (B, J) joint visibility (1 = visible).
+
+    The aux holds ``coords`` (the last stack's, (B, J, 2)) and
+    ``euclidean`` and ``reg`` (dsnt), ``mse`` (gauss) or ``euclidean`` (fc).
     """
-    if cfg.output_strat != "dsnt":
-        raise _not_ported(cfg)
-    raw = heatmaps
+    raw = output.heatmaps
     t = target_coords[None]
     m = mask[None].expand(raw.shape[:3])
+    if cfg.output_strat == "gauss":
+        target_hm = ops.make_gauss(t, raw.shape[-2:], cfg.hm_sigma,
+                                   normalize=cfg.gauss_target_normalize)
+        per_joint = ((raw.to(torch.float32) - target_hm) ** 2).mean(dim=(-2, -1))
+        per_stack = _masked_mean_keep_stacks(per_joint, m)
+        coords = ops.heatmaps_to_coords(raw[-1].to(torch.float32))
+        return _stack_reduce(per_stack, cfg), {"coords": coords,
+                                               "mse": per_stack[-1]}
+    if cfg.output_strat == "fc":
+        per_stack = _masked_mean_keep_stacks(
+            _coord_losses(output.fc_coords, t, cfg), m)
+        return _stack_reduce(per_stack, cfg), {"coords": output.fc_coords[-1],
+                                               "euclidean": per_stack[-1]}
+    if cfg.output_strat != "dsnt":
+        raise ValueError(f"unknown output strategy {cfg.output_strat!r}")
     if use_cuda_head(cfg):
         coords, reg = fused_dsnt_head(
             raw.to(torch.float32), t.expand(*raw.shape[:3], 2),
@@ -89,19 +114,22 @@ def pose_loss(heatmaps: torch.Tensor, target_coords: torch.Tensor,
     euc = _coord_losses(coords, t, cfg)
     per_joint = euc if reg is None else euc + cfg.reg_coeff * reg
     per_stack = _masked_mean_keep_stacks(per_joint, m)
-    loss = per_stack.sum() if cfg.stack_loss == "sum" else per_stack.mean()
     aux = {"coords": coords[-1],
            "euclidean": ops.average_loss(euc[-1], mask),
            "reg": (ops.average_loss(reg[-1], mask) if reg is not None
                    else torch.zeros((), device=raw.device))}
-    return loss, aux
+    return _stack_reduce(per_stack, cfg), aux
 
 
-def decode_coords(heatmaps: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def decode_coords(output: PoseOutput, cfg: ModelConfig) -> torch.Tensor:
     """Normalized (x, y) coords from the LAST stack: (B, J, 2)."""
+    if cfg.output_strat == "gauss":
+        return ops.heatmaps_to_coords(output.heatmaps[-1].to(torch.float32))
+    if cfg.output_strat == "fc":
+        return output.fc_coords[-1]
     if cfg.output_strat != "dsnt":
-        raise _not_ported(cfg)
-    raw = heatmaps[-1]
+        raise ValueError(f"unknown output strategy {cfg.output_strat!r}")
+    raw = output.heatmaps[-1]
     if use_cuda_head(cfg):
         coords, _ = fused_dsnt_head(raw.to(torch.float32), None,
                                     sigma_px=cfg.hm_sigma, reg="none",

@@ -148,6 +148,11 @@ class HourglassNet(nn.Module):
                 self.add_module(f"score_back{i}",
                                 nn.Conv2d(num_joints, features, 1))
 
+    def output_side(self, side: int) -> int:
+        """Side of the score maps for a square input of ``side`` px (the
+        stride-2 stem conv, then a 2x2 max-pool)."""
+        return -(-side // 2) // 2
+
     def _autocast(self, x):
         if self.dtype not in _AUTOCAST_DTYPES:
             return contextlib.nullcontext()

@@ -21,6 +21,23 @@ def euclidean_losses(actual: torch.Tensor, target: torch.Tensor) -> torch.Tensor
     return torch.linalg.vector_norm(actual - target, dim=-1)
 
 
+def l1_losses(actual: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-joint L1 distance (paper ablation variant)."""
+    return (actual - target).abs().sum(dim=-1)
+
+
+def mse_losses(actual: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-joint squared L2 distance (paper ablation variant)."""
+    return ((actual - target) ** 2).sum(dim=-1)
+
+
+COORD_LOSSES = {
+    "euclidean": euclidean_losses,
+    "l1": l1_losses,
+    "mse": mse_losses,
+}
+
+
 def _kl(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """KL(p || q) over the trailing (H, W) axes, eps-guarded logs."""
     return (p * (torch.log(p + _EPS) - torch.log(q + _EPS))).sum(dim=(-2, -1))

@@ -56,6 +56,8 @@ from ..utils.config import Config
 from ..utils.visualization import render_skeleton, save_png
 from .state import TrainState, create_train_state, step_seed
 
+# The head's aux values that a train step reports, where its head has them.
+AUX_METRICS = ("euclidean", "reg", "mse")
 BATCH_KEYS = ("canvases", "coords_px", "mask", "head_length",
               "canvas_from_orig", "canvas_margin")
 
@@ -83,16 +85,17 @@ def _eval_scales(cfg: Config) -> tuple:
 
 
 def _decode_averaged(model: PoseModel, cfg: Config, images):
-    """Eval-mode forward + decode: ``(raw heatmaps, coords_norm)``.
+    """Eval-mode forward + decode: ``(output, coords_norm)``.
 
-    The heatmaps are the unflipped pass's (the loss is always scored on the
-    canonical view).  With ``flip_eval`` a mirrored pass is decoded too:
-    ``images`` are NHWC, so the flip is along dim 2 (the width); its x is
-    negated (exact on the symmetric pixel-center grid), the L/R joints are
-    swapped and the two decodes averaged.
+    ``output`` is the unflipped pass's :class:`..models.heads.PoseOutput`
+    (the loss is always scored on the canonical view).  With ``flip_eval``
+    a mirrored pass is decoded too, whatever the head: ``images`` are NHWC,
+    so the flip is along dim 2 (the width); its x is negated (exact on the
+    symmetric pixel-center grid), the L/R joints are swapped and the two
+    decodes averaged.
     """
-    heatmaps = model.forward(images, train=False)
-    coords_norm = model.decode(heatmaps)
+    output = model.forward(images, train=False)
+    coords_norm = model.decode(output)
     if cfg.train.flip_eval:
         coords_f = model.decode(model.forward(torch.flip(images, dims=(2,)),
                                               train=False))
@@ -100,7 +103,7 @@ def _decode_averaged(model: PoseModel, cfg: Config, images):
         coords_f = torch.stack([-coords_f[..., 0], coords_f[..., 1]],
                                dim=-1)[..., perm, :]
         coords_norm = 0.5 * (coords_norm + coords_f)
-    return heatmaps, coords_norm
+    return output, coords_norm
 
 
 def _check_device(model: PoseModel, device) -> torch.device:
@@ -134,7 +137,9 @@ def _preprocess(batch: dict, cfg: Config, in_size: int,
 
 def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
                   steps_per_epoch: int = 1):
-    """Train step: ``step(batch, draws=None) -> {loss, grad_norm, euclidean, reg}``.
+    """Train step: ``step(batch, draws=None) -> {loss, grad_norm, ...}``,
+    plus the head's ``euclidean``, ``reg`` and ``mse`` where its aux has
+    them (dsnt: euclidean and reg; gauss: mse; fc: euclidean).
 
     The step's :class:`.state.TrainState` (step count, model, optimizer
     chain, seed) is ``step.state``; each call advances it by one optimizer
@@ -157,15 +162,14 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
                                        gen)
         with torch.no_grad():
             pre = _preprocess(batch, cfg, in_size, draws)
-        heatmaps = model.forward(pre["images"], train=True)
-        loss, aux = model.loss(heatmaps, pre["coords"], pre["mask"])
+        output = model.forward(pre["images"], train=True)
+        loss, aux = model.loss(output, pre["coords"], pre["mask"])
         state.optimizer.zero_grad()
         loss.backward()
         grad_norm = state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "euclidean": aux["euclidean"].detach(),
-                "reg": aux["reg"].detach()}
+                **{k: aux[k].detach() for k in AUX_METRICS if k in aux}}
 
     train_step.state = state
     return train_step
@@ -295,8 +299,8 @@ def make_eval_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
     def eval_step(batch: dict) -> dict:
         batch = _on_device(batch, dev)
         pre = _preprocess(batch, cfg, in_size)
-        heatmaps, coords_norm = _decode_averaged(model, cfg, pre["images"])
-        loss, _ = model.loss(heatmaps, pre["coords"], pre["mask"])
+        output, coords_norm = _decode_averaged(model, cfg, pre["images"])
+        loss, _ = model.loss(output, pre["coords"], pre["mask"])
         pred_canonical = _to_original_px(coords_norm, pre["crop_from_orig"],
                                          in_size)
         preds = []
@@ -499,9 +503,11 @@ class Trainer:
     and takes no other (restore a checkpoint into it in place).  With
     ``auto_pack`` a decode-backed train split streams epoch 0 through
     :class:`..data.pack.AutoPackDataset` and trains from the published
-    archive after it (:meth:`_swap_to_packed`).  Several processes and
-    ``pretrained_resnet`` are not ported yet (ROADMAP Queue 1: Data
-    parallel, ResNet).
+    archive after it (:meth:`_swap_to_packed`).  For a ``resnet*`` base,
+    ``cfg.data.pretrained_resnet`` (a torchvision state dict, ``.npz`` or
+    ``torch.save``) is loaded into the backbone when the Trainer is made,
+    before its first step.  Several processes are not ported yet (ROADMAP
+    Queue 1, Data parallel).
     """
 
     model: PoseModel
@@ -515,6 +521,7 @@ class Trainer:
 
     def __post_init__(self):
         self.device = _check_device(self.model, self.device)
+        self._load_pretrained()
         self._autopack = self._maybe_autopack()
         self.resident = self._maybe_resident()
         spe = max((self.resident or self.train_loader).steps_per_epoch, 1)
@@ -543,6 +550,21 @@ class Trainer:
     @staticmethod
     def _log0(msg: str):
         print(msg, flush=True)
+
+    def _load_pretrained(self):
+        """Load ``cfg.data.pretrained_resnet`` into a ResNet backbone, in
+        place (the optimizer keeps the same parameter objects); the score
+        conv and an fc head keep their initialization."""
+        path = getattr(self.cfg.data, "pretrained_resnet", "")
+        if not path or not self.model.cfg.base.startswith("resnet"):
+            return
+        from ..models.import_torch import load_torchvision_resnet, read_state_dict
+
+        net = self.model.net
+        net.load_state_dict(
+            load_torchvision_resnet(net.state_dict(), read_state_dict(path)),
+            strict=True)
+        self._log0(f"pretrained_resnet: loaded {path} into the backbone")
 
     def _make_resident_steps(self):
         """The resident single and (k > 1) multi-step over the Trainer's

@@ -32,8 +32,9 @@ def _modules():
 NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "cli.common", "cli.evaluate", "cli.infer", "cli.train",
                "data.loader", "data.mpii", "data.pack", "data.prepare",
-               "data.resident", "native", "ops.cuda.calib",
-               "train.checkpoint", "train.metrics", "utils.visualization")
+               "data.resident", "models.import_torch", "models.resnet",
+               "native", "ops.cuda.calib", "ops.decode", "train.checkpoint",
+               "train.metrics", "utils.visualization")
 
 
 def test_importing_every_module_loads_no_jax():

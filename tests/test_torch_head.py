@@ -146,14 +146,16 @@ def test_pose_loss_and_decode_match_jax(use_pallas, reg):
     kw = dict(base="hg2", reg=reg, reg_coeff=0.7, use_pallas=use_pallas)
     jl, jaux = j_pose_loss(PoseOutput(heatmaps=jnp.asarray(raw)),
                            jnp.asarray(t), jnp.asarray(mask), JModelConfig(**kw))
-    tl, taux = t_heads.pose_loss(torch.from_numpy(raw), torch.from_numpy(t),
-                                 torch.from_numpy(mask), TModelConfig(**kw))
+    tl, taux = t_heads.pose_loss(t_heads.PoseOutput(torch.from_numpy(raw)),
+                                 torch.from_numpy(t), torch.from_numpy(mask),
+                                 TModelConfig(**kw))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-6)
     for k in ("coords", "euclidean", "reg"):
         np.testing.assert_allclose(taux[k].numpy(), np.asarray(jaux[k]),
                                    rtol=1e-5, atol=2e-6)
     jc = j_decode(PoseOutput(heatmaps=jnp.asarray(raw)), JModelConfig(**kw))
-    tc = t_heads.decode_coords(torch.from_numpy(raw), TModelConfig(**kw))
+    tc = t_heads.decode_coords(t_heads.PoseOutput(torch.from_numpy(raw)),
+                               TModelConfig(**kw))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-6)
 
 

@@ -48,10 +48,17 @@ def _heads(shape, seed, device):
     return torch.from_numpy(raw).to(device), torch.from_numpy(t).to(device)
 
 
+# 64x64 (hourglass at 256 px), 56x56 (ResNet-50 dilate 2 at 448 px: the
+# forward's AnyMap, the backward's StagedRow), and 8x8 to 32x32 (the
+# resolution ablation's ResNet maps at 256 px).
+HEAD_SHAPES = [(2, 3, 64, 64), (5, 7, 9), (2, 3, 56, 56), (4, 8, 8),
+               (4, 16, 16), (4, 32, 32)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
-@pytest.mark.parametrize("shape", [(2, 3, 64, 64), (5, 7, 9)])
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_head_kernel_matches_plain(cuda, shape, reg, preact):
     raw, t = _heads(shape, 31, cuda)
     got_c, got_r = fused_dsnt_head(raw, t, sigma_px=1.3, reg=reg,
@@ -89,7 +96,7 @@ def test_head_kernel_counts_launches(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
-@pytest.mark.parametrize("shape", [(2, 3, 64, 64), (5, 7, 9)])
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_head_bwd_kernel_matches_plain(cuda, shape, reg, preact):
     raw, t = _heads(shape, 37, cuda)
     g = torch.Generator().manual_seed(3)
@@ -109,6 +116,22 @@ def test_head_bwd_kernel_matches_plain(cuda, shape, reg, preact):
     torch.cuda.synchronize()
     atol = max(2e-6, 5e-6 * exp.abs().max().item())
     torch.testing.assert_close(x.grad, exp, atol=atol, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", REG_KINDS)
+def test_head_bwd_kernel_deterministic_at_56(cuda, reg):
+    # The ResNet-50 2x main path's rows (512 of 56x56): two launches on the
+    # same inputs give the same bits.
+    raw, t = _heads((32, 16, 56, 56), 41, cuda)
+    g = torch.Generator().manual_seed(4)
+    gc = torch.randn((32, 16, 2), generator=g).to(cuda)
+    gr = torch.randn((32, 16), generator=g).to(cuda)
+    kw = dict(sigma_px=1.0, reg=reg, preact="softmax")
+    a = fused_dsnt_head_bwd(raw, t, gc, gr, **kw)
+    b = fused_dsnt_head_bwd(raw, t, gc, gr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -189,6 +212,21 @@ def test_row_shift_kernel_bitwise_main_path_shapes(cuda, shape):
     r, length, out = shape
     rows, starts, fracs = _shift_inputs(r, length, out, 3, length, cuda)
     starts = starts - starts % 3       # whole RGB pixels, as the warp gives
+    got = shift_rows(rows, starts, fracs, out, stride=3)
+    exp = shift_rows_reference(rows, starts, fracs, out, stride=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+# The ResNet-50 2x main path's four calls (batch 32, 448-px input from
+# 672-px canvases): the train step's two passes, then the eval step's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(21504, 6744, 4374), (14336, 2928, 1344),
+                                   (21504, 2040, 2022), (14336, 1362, 1344)])
+def test_row_shift_kernel_bitwise_448px_shapes(cuda, shape):
+    r, length, out = shape
+    rows, starts, fracs = _shift_inputs(r, length, out, 3, length, cuda)
+    starts = starts - starts % 3
     got = shift_rows(rows, starts, fracs, out, stride=3)
     exp = shift_rows_reference(rows, starts, fracs, out, stride=3)
     torch.cuda.synchronize()

@@ -116,7 +116,7 @@ def test_posenet_loads_flax_posenet_variables(images):
     model = build_pose_model(ModelConfig(**kw), device="cpu", state_dict=state)
     out_j = np.asarray(jmodel.forward(variables, jnp.asarray(images)).heatmaps)
     with torch.inference_mode(), strict_fp32():
-        out_t = model.forward(torch.from_numpy(images)).numpy()
+        out_t = model.forward(torch.from_numpy(images)).heatmaps.numpy()
     np.testing.assert_allclose(out_t, out_j, rtol=1e-4, atol=2e-4)
 
 
@@ -134,10 +134,27 @@ def test_seeded_init_is_deterministic():
     assert abs(float(w.var()) * fan_in - 1.0) < 0.1
 
 
-@pytest.mark.parametrize("base", ["resnet50", "vit_s16"])
+@pytest.mark.parametrize("base", ["vit_s16", "vit_b16"])
 def test_other_bases_not_ported(base):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, ViT"):
         build_pose_model(ModelConfig(base=base), device="cpu")
+
+
+@pytest.mark.parametrize("base,dilate,side", [
+    ("resnet18", 0, 2), ("resnet34", 1, 4), ("resnet50", 2, 8),
+    ("resnet101", 3, 16)])
+def test_resnet_bases_build(base, dilate, side):
+    # Built (formerly refused as not ported); resnet101 without a forward,
+    # which would take seconds of this host's CPU.
+    cfg = ModelConfig(base=base, dilate=dilate, input_size=SIZE, dtype="float32")
+    model = build_pose_model(cfg, device="cpu")
+    assert model.heatmap_size == side
+    assert model.net.backbone.output_side(SIZE) == side
+    assert model.net.backbone.score.out_channels == J
+    if base != "resnet101":
+        with torch.inference_mode():
+            out = model.forward(torch.zeros((1, SIZE, SIZE, 3)))
+        assert out.heatmaps.shape == (1, 1, J, side, side) and out.fc_coords is None
 
 
 def test_remat_not_ported():

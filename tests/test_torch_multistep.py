@@ -50,6 +50,7 @@ from dsnt_pose2d_tpu_torch.data.resident import ResidentTrainData
 from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
 from dsnt_pose2d_tpu_torch.models.factory import PoseModel, build_pose_model
 from dsnt_pose2d_tpu_torch.models.from_jax import hourglass_from_jax
+from dsnt_pose2d_tpu_torch.models.heads import PoseOutput as TPoseOutput
 from dsnt_pose2d_tpu_torch.models.hourglass import HourglassNet
 from dsnt_pose2d_tpu_torch.train import loop as tloop
 from dsnt_pose2d_tpu_torch.train.loop import (_prefetch_dispatch_groups,
@@ -171,7 +172,7 @@ class _TorchNet64(nn.Module):
                                      dtype=torch.float64).double()
 
     def forward(self, images):
-        return self.backbone(images.double())
+        return TPoseOutput(self.backbone(images.double()))
 
 
 def run_fp64_multi(optim: jconfig.OptimConfig) -> SimpleNamespace:

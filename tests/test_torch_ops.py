@@ -1,5 +1,7 @@
 """The port's plain ops (dsnt_pose2d_tpu_torch.ops) against the JAX ops on
-identical numpy inputs, forward, fp32, at ~1e-6."""
+identical numpy inputs, forward, fp32, at ~1e-6.  The argmax decode of the
+gauss head is held exactly (the same pixel, the same quarter offsets) on
+maps with ties, maxima on every edge and corner, and equal neighbours."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +41,8 @@ def test_coordinate_grids():
         np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["softmax", "thresholded_softmax"])
+@pytest.mark.parametrize("name", ["softmax", "thresholded_softmax", "relu",
+                                  "abs", "sigmoid"])
 def test_activations(maps, name):
     raw = maps[0]
     np.testing.assert_allclose(
@@ -82,6 +85,89 @@ def test_euclidean_losses(maps):
         tops.euclidean_losses(_t(a), _t(maps[1])).numpy(),
         np.asarray(jops.euclidean_losses(jnp.asarray(a), jnp.asarray(maps[1]))),
         atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["l1", "mse"])
+def test_coord_losses(maps, name):
+    a = np.random.default_rng(5).uniform(-1, 1, size=(2, 3, 2)).astype(np.float32)
+    fn = {"l1": jops.l1_losses, "mse": jops.mse_losses}[name]
+    np.testing.assert_allclose(
+        tops.COORD_LOSSES[name](_t(a), _t(maps[1])).numpy(),
+        np.asarray(fn(jnp.asarray(a), jnp.asarray(maps[1]))), atol=ATOL)
+
+
+def test_sum_normalized_all_zero_map():
+    # relu of a map with no positive value: the sum is floored at 1e-24, so
+    # the map stays 0 (no NaN), as in the JAX package.
+    raw = -np.ones((1, 4, 5), np.float32)
+    got = tops.relu_normalized(_t(raw)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.HEATMAP_ACTIVATIONS["relu"](jnp.asarray(raw))))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("size_hw", [(9, 7), (56, 56)])
+def test_pixel_normalized_round_trip(size_hw):
+    px = np.random.default_rng(6).uniform(-1, 60, size=(4, 3, 2)).astype(np.float32)
+    got = tops.pixel_to_normalized(_t(px), size_hw)
+    from dsnt_pose2d_tpu.ops.coords import normalized_to_pixel, pixel_to_normalized
+
+    exp = np.asarray(pixel_to_normalized(jnp.asarray(px), size_hw))
+    np.testing.assert_allclose(got.numpy(), exp, atol=ATOL)
+    back = tops.normalized_to_pixel(got, size_hw).numpy()
+    np.testing.assert_allclose(
+        back, np.asarray(normalized_to_pixel(jnp.asarray(exp), size_hw)),
+        atol=1e-5)
+    np.testing.assert_allclose(back, px, atol=1e-4)
+
+
+def _decode_maps():
+    """Maps whose argmax lies on each edge and corner, ties (the first
+    maximum wins), equal neighbours (no shift), and random maps."""
+    h, w = 6, 7
+    maps = []
+    for y, x in [(0, 0), (0, 3), (0, w - 1), (2, 0), (2, w - 1), (h - 1, 0),
+                 (h - 1, 4), (h - 1, w - 1), (3, 3)]:
+        m = np.zeros((h, w), np.float32)
+        m[y, x] = 2.0
+        if 0 < x < w - 1:
+            m[y, x + 1] = 1.0      # right neighbour larger: +1/4 in x
+        if 0 < y < h - 1:
+            m[y - 1, x] = 1.0      # upper neighbour larger: -1/4 in y
+        maps.append(m)
+    tie = np.zeros((h, w), np.float32)
+    tie[2, 2] = tie[2, 5] = tie[4, 1] = 3.0
+    maps.append(tie)                   # three maxima: (2, 2) is first
+    equal = np.zeros((h, w), np.float32)
+    equal[3, 2:5] = [1.0, 2.0, 1.0]
+    equal[2:5, 3] = [0.5, 2.0, 0.5]
+    maps.append(equal)                 # equal neighbours on both axes
+    maps.append(np.full((h, w), -1.0, np.float32))   # constant: pixel 0
+    rng = np.random.default_rng(7)
+    maps.extend(rng.normal(size=(4, h, w)).astype(np.float32))
+    return np.stack(maps)
+
+
+def test_heatmaps_to_coords_matches_jax():
+    maps = _decode_maps()
+    got = tops.heatmaps_to_coords(_t(maps)).numpy()
+    exp = np.asarray(jops.heatmaps_to_coords(jnp.asarray(maps)))
+    np.testing.assert_array_equal(got, exp)
+    px = tops.normalized_to_pixel(_t(got), (6, 7)).numpy()
+    np.testing.assert_allclose(px[0], [0, 0], atol=1e-6)          # corner
+    np.testing.assert_allclose(px[1], [3.25, 0], atol=1e-6)       # top edge
+    np.testing.assert_allclose(px[8], [3.25, 2.75], atol=1e-6)    # interior
+    np.testing.assert_allclose(px[9], [2, 2], atol=1e-6)          # first tie
+    np.testing.assert_allclose(px[10], [3, 3], atol=1e-6)         # no shift
+    np.testing.assert_allclose(px[11], [0, 0], atol=1e-6)         # constant
+
+
+def test_heatmaps_to_coords_leading_axes():
+    maps = _decode_maps().reshape(4, 4, 6, 7)
+    got = tops.heatmaps_to_coords(_t(maps))
+    assert got.shape == (4, 4, 2)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.heatmaps_to_coords(jnp.asarray(maps))))
 
 
 @pytest.mark.parametrize("use_mask", [True, False])
