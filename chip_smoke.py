@@ -28,7 +28,14 @@ steps counted, held against their plain paths and timed, and the head and
 row_shift held and timed at those shapes) and ``heads``
 (``configs/ablation_heads.json``: hg4 with the dsnt+JS, gauss and fc
 heads, train steps and a flip x 3-scale eval step each, and fc through
-``cli.train`` -> ``cli.evaluate``).
+``cli.train`` -> ``cli.evaluate``).  Then the ViT: ``vit``
+(``configs/vit_s16_dsnt_2x.json``: ViT-S/16 at 448 px, driven and held as
+the ResNet-50 2x model, then its train step with remat against the same
+step without, ``vit_remat``), ``remat`` (the flagship hg8 train step with
+remat against without: losses and BN statistics bitwise, peak memory and
+step time of each) and last ``telemetry`` (``cli.train`` on the ViT in a
+process of its own with ``--profile-dir``, ``--dashboard-port`` and
+``--debug-nans``, and a NaN train step that must raise).
 
 Run from the root of a checkout, with no arguments:
 
@@ -120,7 +127,7 @@ TRAINER_EVAL_LOSS_RTOL = 1e-5
 # dilate 2, 448-px input: 56x56 heatmaps), on 672-px canvases (1.5x the
 # input, the canvas rule of utils/config.py).
 RESNET_CONFIG = ROOT / "configs" / "resnet50_dsnt_2x.json"
-RESNET_CANVAS = 672
+CANVAS_448 = 672          # the canvas rule's 1.5x of a 448-px input
 # The heads phase: BASELINE config #4 (hg4, 256 features, 256 px, bf16) with
 # each head of tools/_ablation_common.py's HEAD_FLAGS, a few train steps
 # and an eval step with flip and 3 scales at batch 32; then fc through the
@@ -136,6 +143,19 @@ HEAD_METRICS = {"dsnt": {"loss", "grad_norm", "euclidean", "reg"},
 HEADS_STEPS = 3
 HEADS_SCALES = (0.9, 1.0, 1.1)
 HEADS_CLI_ROWS = 64
+# The vit phase: BASELINE config #5's ViT-S/16 as its file gives it (384
+# wide, 12 blocks, 6 heads, 448 px: 56x56 heatmaps), as the resnet phase;
+# then its train step with remat on the same weights, batch and draws.
+VIT_CONFIG = ROOT / "configs" / "vit_s16_dsnt_2x.json"
+# The telemetry phase: cli.train on that config in a process of its own,
+# with --profile-dir, --dashboard-port and --debug-nans, on 64 synthetic
+# rows (2 train steps an epoch, 16 val rows), 2 epochs.
+# remat against no remat: each step's median over this many windows, one
+# turn each (the hg8 step takes ~0.6-0.8 s).
+REMAT_REPS = 10
+TELEMETRY_ROWS = 64
+TELEMETRY_TIMEOUT_S = 300
+TELEMETRY_KERNELS = ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift")
 
 
 def emit(phase: str, **fields):
@@ -1154,10 +1174,30 @@ def head_on_rows(heat, t, reg, preact, ceiling, gc=None, dheat=None):
 
 def phase_resnet(dev, card, ceiling):
     """BASELINE config #5 (ResNet-50, dilate 2, 448 px, bf16, DSNT without
-    a regularizer) at batch 32 on 672-px canvases: the eval and infer steps
-    and the train step, counted and held against their plain paths, timed;
-    the head at 512 rows of 56x56 (forward AnyMap, backward StagedRow) and
-    row_shift at the 448-px calls, held and timed on the path's inputs."""
+    a regularizer) at batch 32 on 672-px canvases: :func:`drive_448px`."""
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    cfg = config_from_json(RESNET_CONFIG.read_text())
+    m = cfg.model
+    assert (m.base, m.dilate, m.truncate, m.resolved_input_size, m.dtype,
+            m.output_strat, m.preact, m.reg, m.use_pallas) == (
+        "resnet50", 2, 0, 448, "bfloat16", "dsnt", "softmax", "none", True), m
+    out = drive_448px("resnet", RESNET_CONFIG, cfg, dev, card, ceiling)
+    del out["model"], out["batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_448px(phase, path, cfg, dev, card, ceiling):
+    """A config #5 model (56x56 heatmaps, DSNT without a regularizer) from
+    seed 0 at batch 32 on 672-px canvases: the eval and infer steps and the
+    train step, counted and held against their plain paths, timed, peak
+    memory and a profiled train step whose head backward must be
+    StagedRow; the head at 512 rows of 56x56 (forward AnyMap, backward
+    StagedRow) and row_shift at the 448-px calls, held and timed on the
+    path's inputs.  Returns the launches and readings, and the model (its
+    weights after the timed steps) and the batch."""
     from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
     from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
@@ -1165,20 +1205,15 @@ def phase_resnet(dev, card, ceiling):
     from dsnt_pose2d_tpu_torch.ops import euclidean_losses
     from dsnt_pose2d_tpu_torch.ops.cuda import fused_dsnt_head
     from dsnt_pose2d_tpu_torch.train.loop import make_eval_fn, make_infer_fn
-    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = config_from_json(RESNET_CONFIG.read_text())
     m = cfg.model
-    assert (m.base, m.dilate, m.truncate, m.resolved_input_size, m.dtype,
-            m.output_strat, m.preact, m.reg, m.use_pallas) == (
-        "resnet50", 2, 0, 448, "bfloat16", "dsnt", "softmax", "none", True), m
     assert cfg.data.warp_method == "shear" and cfg.train.batch_size == BATCH
     model = build_pose_model(m, device=dev, seed=0)
     side = model.heatmap_size
     assert side == 56, side
-    batch = synthetic_batch(dev, RESNET_CANVAS)
+    batch = synthetic_batch(dev, CANVAS_448)
     pre_args = (batch["canvases"], batch["coords_px"], batch["mask"],
                 batch["head_length"], batch["canvas_from_orig"])
     with torch.inference_mode():
@@ -1200,7 +1235,7 @@ def phase_resnet(dev, card, ceiling):
     expected = {**dict.fromkeys(serve_launches, 0), "dsnt_head_fwd": 3 * STEPS,
                 "row_shift": 4 * STEPS}
     if serve_launches != expected:
-        raise AssertionError(f"resnet serve launches {serve_launches}, "
+        raise AssertionError(f"{phase} serve launches {serve_launches}, "
                              f"expected {expected}")
     pred = outs[0]["pred_orig"]
     assert pred.shape == (BATCH, 16, 2) and torch.isfinite(pred).all()
@@ -1227,10 +1262,10 @@ def phase_resnet(dev, card, ceiling):
     train_step = train["step"]
     train_ms = timing.time_ms(lambda: train_step(batch), spread=True)
     train_peak = peak_memory(lambda: train_step(batch))
-    instances = profile_step("resnet_train_step", lambda: train_step(batch),
+    instances = profile_step(f"{phase}_train_step", lambda: train_step(batch),
                              train_ms[0], card)
     if bwd_layouts(instances) != {"StagedRow"}:
-        raise AssertionError(f"the ResNet train step's head backward ran in "
+        raise AssertionError(f"the {phase} train step's head backward ran in "
                              f"{bwd_layouts(instances)}, not StagedRow")
 
     # The head's backward on the train step's first heatmaps, with the
@@ -1257,15 +1292,15 @@ def phase_resnet(dev, card, ceiling):
     bwd["layout"] = "StagedRow"
     fwd["layout"] = "AnyMap"
 
-    recorded = {"resnet_serve": {(*c[0].shape, c[3]): c for c in serve_calls[:2]},
-                "resnet_train": {(*c[0].shape, c[3]): c
-                                 for c in train["row_shift_calls"][:2]}}
+    recorded = {f"{phase}_serve": {(*c[0].shape, c[3]): c for c in serve_calls[:2]},
+                f"{phase}_train": {(*c[0].shape, c[3]): c
+                                   for c in train["row_shift_calls"][:2]}}
     shapes = {p: assert_row_shift_bitwise(p, list(calls.values()))
               for p, calls in recorded.items()}
     shift, shift_lib_err = phase_row_shift_timing(recorded, ceiling)
     launches = {k: serve_launches[k] + train["launches"][k] for k in serve_launches}
-    emit("resnet", card=card, config=str(RESNET_CONFIG.relative_to(ROOT)),
-         batch=BATCH, canvas=RESNET_CANVAS, heatmap_side=side, steps=STEPS,
+    emit(phase, card=card, config=str(path.relative_to(ROOT)),
+         batch=BATCH, canvas=CANVAS_448, heatmap_side=side, steps=STEPS,
          launches={"serve": serve_launches, "train": train["launches"]},
          serve={"loss": outs[0]["loss"].item(), "vs_plain": serve_vs_plain,
                 "tolerance": STEP_TOL},
@@ -1285,11 +1320,234 @@ def phase_resnet(dev, card, ceiling):
                     "bitwise_equal": True},
          ceiling_GB_per_s=ceiling,
          clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
-    del model, eval_step, infer_step, train, train_step
+    del eval_step, infer_step, train, train_step
+    return {"launches": launches, "fwd": fwd, "bwd": bwd, "row_shift": shift,
+            "max_row_shift_err": 0.0, "train_ms": train_ms[0],
+            "train_peak": train_peak, "model": model, "batch": batch}
+
+
+
+
+def phase_vit(dev, card, ceiling):
+    """BASELINE config #5's ViT-S/16 (448 px, bf16, DSNT without a
+    regularizer) at batch 32 on 672-px canvases: :func:`drive_448px`, then
+    the train step with remat against the same step without it."""
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    cfg = config_from_json(VIT_CONFIG.read_text())
+    m = cfg.model
+    assert (m.base, m.resolved_input_size, m.dtype, m.output_strat, m.preact,
+            m.reg, m.use_pallas) == (
+        "vit_s16", 448, "bfloat16", "dsnt", "softmax", "none", True), m
+    assert not m.remat
+    out = drive_448px("vit", VIT_CONFIG, cfg, dev, card, ceiling)
+    model, batch = out.pop("model"), out.pop("batch")
+    state = {k: v.clone() for k, v in model.net.state_dict().items()}
+    del model
+    out["remat"] = remat_vs_no_remat("vit_remat", cfg, state, batch, dev, card)
+    return out
+
+
+def remat_vs_no_remat(phase, cfg, state, batch, dev, card):
+    """One train step of ``cfg`` without remat and one with it, each from
+    the weights ``state`` on ``batch`` with the draws of step 0, cuDNN's
+    deterministic algorithms on: the launches asserted (a head forward and
+    backward, two row_shift), the losses bitwise equal, the BN running
+    statistics after the step bitwise equal (they moved once with remat
+    too), the gradients' norms within TRAIN_TOL; then each step's peak
+    memory and its median time over REMAT_REPS windows."""
+    import dataclasses
+
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
+
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "fwd": fwd, "bwd": bwd, "row_shift": shift,
-            "max_row_shift_err": 0.0}
+    expected = {"dsnt_head_fwd": 1, "dsnt_head_bwd": 1, "row_shift": 2}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs, launches = {}, {}
+        for remat in (False, True):
+            mcfg = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, remat=remat))
+            model = build_pose_model(mcfg.model, device=dev, seed=0)
+            model.net.load_state_dict(state)
+            step = make_train_fn(model, mcfg, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            got = kernels.launch_counts()
+            if got != {**dict.fromkeys(got, 0), **expected}:
+                raise AssertionError(f"{phase} remat={remat} launches {got}, "
+                                     f"expected {expected}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            runs[remat] = {
+                "step": step, "loss": metrics["loss"].clone(),
+                "grad_norm": metrics["grad_norm"].item(),
+                "grads": {n: p.grad.clone() for n, p in model.net.named_parameters()},
+                "stats": {k: v.clone() for k, v in model.net.state_dict().items()
+                          if "running" in k}}
+        off, on = runs[False], runs[True]
+        loss_equal = torch.equal(on["loss"], off["loss"])
+        stats_equal = all(torch.equal(on["stats"][k], v)
+                          for k, v in off["stats"].items())
+        norm_rel = abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"]
+        gmax = max(g.abs().max().item() for g in off["grads"].values())
+        grad_diff = max((on["grads"][n] - g).abs().max().item()
+                        for n, g in off["grads"].items())
+        if not (loss_equal and stats_equal and norm_rel <= TRAIN_TOL["grad_norm_rtol"]):
+            raise AssertionError(
+                f"{phase}: remat against no remat: loss equal {loss_equal} "
+                f"({on['loss'].item()} vs {off['loss'].item()}), BN "
+                f"statistics equal {stats_equal}, grad norm rel {norm_rel}")
+        for run in (off, on):
+            del run["grads"]
+        times, peaks = {}, {}
+        for remat in (False, True):
+            times[remat] = timing.time_ms(lambda: runs[remat]["step"](batch),
+                                          spread=True, reps=REMAT_REPS)
+            peaks[remat] = peak_memory(lambda: runs[remat]["step"](batch))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    median = {r: t[0] for r, t in times.items()}
+    emit(phase, card=card, batch=BATCH, base=cfg.model.base,
+         cudnn_deterministic=True, launches=launches,
+         loss={"no_remat": off["loss"].item(), "remat": on["loss"].item(),
+               "bitwise_equal": loss_equal},
+         bn_running_stats={"count": len(off["stats"]), "bitwise_equal": stats_equal},
+         grad_norm={"no_remat": off["grad_norm"], "remat": on["grad_norm"],
+                    "rel_diff": norm_rel, "tolerance": TRAIN_TOL["grad_norm_rtol"]},
+         grads_max_diff=grad_diff, grads_max_diff_rel_to_max=grad_diff / gmax,
+         step_ms={"no_remat": median[False], "remat": median[True]},
+         timed_windows=REMAT_REPS,
+         spread_min_max_ms={"no_remat": times[False][1:], "remat": times[True][1:]},
+         remat_time_ratio=median[True] / median[False],
+         peak_mem_bytes={"no_remat": peaks[False], "remat": peaks[True]},
+         remat_peak_mem_ratio=peaks[True] / peaks[False],
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_remat(dev, card):
+    """The flagship (hg8) train step with remat=True against remat=False
+    (:func:`remat_vs_no_remat`), from the seed-0 weights on the hg8
+    batch."""
+    cfg, model = build_flagship(dev)
+    state = {k: v.clone() for k, v in model.net.state_dict().items()}
+    del model
+    return remat_vs_no_remat("remat", cfg, state, synthetic_batch(dev), dev, card)
+
+
+def phase_telemetry(dev, card):
+    """``python -m dsnt_pose2d_tpu_torch.cli.train`` on the ViT config, in a
+    process of its own (a fresh profiler: see PROFILE_ATTEMPTS), with
+    ``--profile-dir``, ``--dashboard-port`` and ``--debug-nans``, 2 epochs
+    on TELEMETRY_ROWS synthetic rows: ``/metrics`` fetched from the
+    dashboard while it runs, the trace of epoch 1 naming the head's two
+    kernels and row_shift.  Then, in this process, a train step on a NaN
+    batch under ``set_debug_nans`` raises ``FloatingPointError``."""
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.train import loop
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="telemetry_") as tmp:
+        prof_dir = os.path.join(tmp, "prof")
+        argv = [sys.executable, "-m", "dsnt_pose2d_tpu_torch.cli.train",
+                "--config", str(VIT_CONFIG), "--data-source", "synthetic",
+                "--synthetic-size", str(TELEMETRY_ROWS), "--canvas-size",
+                str(CANVAS_448), "--epochs", "2", "--out-dir", tmp,
+                "--experiment-id", "telemetry", "--profile-dir", prof_dir,
+                "--dashboard-port", str(port), "--debug-nans"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        fetched = None
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < TELEMETRY_TIMEOUT_S:
+                try:
+                    body = urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=10).read()
+                    if b"loss" in body and fetched is None:
+                        fetched = body
+                except (urllib.error.URLError, OSError):
+                    pass
+                time.sleep(0.2)
+            out, _ = proc.communicate(timeout=max(
+                1.0, TELEMETRY_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t0
+        lines = out.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.train with telemetry exited "
+                                 f"{proc.returncode}:\n" + "\n".join(lines[-30:]))
+        if fetched is None:
+            raise AssertionError("the dashboard served no metrics while the run lasted")
+        records = [json.loads(x) for x in fetched.decode().splitlines() if x.strip()]
+        trace_path = os.path.join(prof_dir, "epoch1.pt.trace.json")
+        trace_bytes = os.path.getsize(trace_path)
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernels_named = {k: sum(1 for n in names if re.search(rf"\b{k}_kernel\b", n))
+                         for k in TELEMETRY_KERNELS}
+        if not all(kernels_named.values()):
+            raise AssertionError(f"the telemetry trace names the kernels "
+                                 f"{kernels_named}")
+        assert os.listdir(prof_dir) == ["epoch1.pt.trace.json"]
+        done = [x for x in lines if x.startswith("done; best val PCKh@0.5")]
+        assert len(done) == 1 and f"dashboard: http://localhost:{port}/" in lines
+
+    # --debug-nans: a train step on a NaN batch raises before its update.
+    cfg = config_from_json(VIT_CONFIG.read_text())
+    model = build_pose_model(cfg.model, device=dev, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_synthetic_mpii(4, CANVAS_448, seed=0).items()}
+    batch["canvases"] = torch.full_like(batch["canvases"], float("nan"))
+    step = loop.make_train_fn(model, cfg, device=dev)
+    loop.set_debug_nans(True)
+    try:
+        step(batch)
+    except FloatingPointError as e:
+        nan_error = str(e)
+    else:
+        raise AssertionError("a NaN train step under debug_nans did not raise")
+    finally:
+        loop.set_debug_nans(False)
+    assert step.state.step == 0 and step.state.optimizer.count == 0
+    assert not torch.is_anomaly_enabled()
+    emit("telemetry", card=card, config=str(VIT_CONFIG.relative_to(ROOT)),
+         rows=TELEMETRY_ROWS, epochs=2, wall_s=wall,
+         dashboard={"port": port, "records_fetched": len(records),
+                    "first_record": records[0]},
+         trace={"file": "epoch1.pt.trace.json", "bytes": trace_bytes,
+                "events": len(events), "kernel_events": kernels_named},
+         debug_nans={"raised": "FloatingPointError", "message": nan_error[:120]},
+         cli_tail=lines[-3:])
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def heads_config(variant):
@@ -2155,10 +2413,18 @@ def main():
     cli_launches = phase_cli(dev, card)
     resnet = phase_resnet(dev, card, ceiling)
     heads_launches = phase_heads(dev, card)
+    vit = phase_vit(dev, card, ceiling)
+    remat_launches = phase_remat(dev, card)
+    for name, n in vit["remat"].items():
+        remat_launches[name] += n
+    # Last: its profiler runs in a process of its own, after every phase
+    # that times or profiles.
+    phase_telemetry(dev, card)
     paths = {"serve": serve_launches, "train": train_launches,
              "bench": bench_launches, "trainer": trainer_launches,
              "cli": cli_launches, "resnet": resnet["launches"],
-             "heads": heads_launches}
+             "heads": heads_launches, "vit": vit["launches"],
+             "remat": remat_launches}
 
     def launches(name):
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -2169,7 +2435,7 @@ def main():
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def at_56(r):   # the ResNet-50 2x path's 512 rows of 56x56
+    def at_56(r):   # a config #5 path's 512 rows of 56x56
         return {k: r[k] for k in (*keys, "rows", "layout", "frac_of_ceiling")}
 
     head_bytes = sum(c["bytes"] for c in head["per_call"].values())
@@ -2179,18 +2445,20 @@ def main():
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:184",
          **launches("dsnt_head_fwd"),
-         "max_abs_err": max(head["max_abs_err"], resnet["fwd"]["max_abs_err"]),
+         "max_abs_err": max(head["max_abs_err"], resnet["fwd"]["max_abs_err"],
+                            vit["fwd"]["max_abs_err"]),
          **{k: head[k] for k in keys},
          "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"]),
-         "at_56x56": at_56(resnet["fwd"])},
+         "at_56x56": at_56(resnet["fwd"]), "at_56x56_vit": at_56(vit["fwd"])},
         {"name": "dsnt_head_bwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
          **launches("dsnt_head_bwd"),
-         "max_abs_err": max(bwd["max_abs_err"], resnet["bwd"]["max_abs_err"]),
+         "max_abs_err": max(bwd["max_abs_err"], resnet["bwd"]["max_abs_err"],
+                            vit["bwd"]["max_abs_err"]),
          **{k: bwd[k] for k in keys}, "layout": bwd["layout"],
          "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"]),
-         "at_56x56": at_56(resnet["bwd"])},
+         "at_56x56": at_56(resnet["bwd"]), "at_56x56_vit": at_56(vit["bwd"])},
         # ms and the other times: the two calls of one serve step; those of
         # one train step are under by_path.
         {"name": "row_shift", "route": "cuda",
@@ -2199,7 +2467,8 @@ def main():
          **launches("row_shift"), "max_abs_err": shift_err,
          **{k: shift["serve"][k] for k in keys},
          "by_path": {p: {k: v[k] for k in keys}
-                     for p, v in {**shift, **resnet["row_shift"]}.items()},
+                     for p, v in {**shift, **resnet["row_shift"],
+                                  **vit["row_shift"]}.items()},
          "legacy_check": shift_legacy,
          "frac_of_ceiling": frac_of_ceiling(shift_bytes, shift["serve"]["ms"])},
     ]

@@ -23,16 +23,17 @@ BACK_TO_BACK = 20    # kernel calls queued in one window: host time hidden
 SPIN_RETAKES = 8
 
 
-def time_ms(fn, spread: bool = False, per_window: int = 1):
-    """Median over REPS CUDA-event windows, after a warm-up, of one window's
-    time over ``per_window``, the number of ``fn()`` calls queued in it.
+def time_ms(fn, spread: bool = False, per_window: int = 1, reps: int = REPS):
+    """Median over ``reps`` CUDA-event windows, after a warm-up, of one
+    window's time over ``per_window``, the number of ``fn()`` calls queued
+    in it.
     With one call per window the time includes the host's work before the
     launch; with many, the card runs them back to back and that work is
     hidden.  With ``spread``, ``(median, min, max)``."""
     for _ in range(WARMUP):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

@@ -26,7 +26,8 @@ def add_device_arg(p: argparse.ArgumentParser):
 def add_model_args(p: argparse.ArgumentParser):
     g = p.add_argument_group("model")
     g.add_argument("--base-model", default="hg1",
-                   help="hg{1,2,4,8} | resnet{18,34,50,101}")
+                   help="hg{1,2,4,8} | resnet{18,34,50,101} | "
+                        "vit_{t16,s16,b16}")
     g.add_argument("--dilate", type=int, default=0)
     g.add_argument("--truncate", type=int, default=0)
     g.add_argument("--output-strat", default="dsnt",
@@ -127,6 +128,53 @@ def config_from_args(args) -> Config:
         steps_per_dispatch=getattr(args, "steps_per_dispatch", 1),
         model_parallel=getattr(args, "model_parallel", 1))
     return Config(model=model, optim=optim, data=data, train=train)
+
+
+def add_config_arg(p: argparse.ArgumentParser):
+    p.add_argument("--config", default="",
+                   help="a config JSON (e.g. configs/vit_s16_dsnt_2x.json) "
+                        "to run; the flags given beside it override its "
+                        "fields")
+
+
+# flag dest -> (config section, field) that config_from_args sets from it
+FLAG_FIELDS = {
+    **{d: ("model", f) for d, f in (
+        ("base_model", "base"), ("dilate", "dilate"), ("truncate", "truncate"),
+        ("output_strat", "output_strat"), ("preact", "preact"), ("reg", "reg"),
+        ("reg_coeff", "reg_coeff"), ("hm_sigma", "hm_sigma"),
+        ("hm_threshold", "hm_threshold"), ("coord_loss", "coord_loss"),
+        ("no_pallas", "use_pallas"), ("dtype", "dtype"),
+        ("hg_features", "hg_features"), ("input_size", "input_size"))},
+    **{d: ("data", f) for d, f in (
+        ("data_dir", "data_dir"), ("data_source", "source"),
+        ("synthetic_size", "synthetic_size"), ("canvas_size", "canvas_size"),
+        ("warp_method", "warp_method"), ("workers", "workers"),
+        ("pretrained_resnet", "pretrained_resnet"),
+        ("device_resident", "device_resident"), ("no_auto_pack", "auto_pack"))},
+    **{d: ("optim", d) for d in ("lr", "optimizer", "schedule")},
+    **{d: ("train", d) for d in (
+        "batch_size", "epochs", "seed", "out_dir", "experiment_id",
+        "steps_per_dispatch", "model_parallel")},
+}
+
+
+def config_with_flags(cfg: Config, args, parser: argparse.ArgumentParser,
+                      argv=None) -> Config:
+    """``cfg`` (a ``--config`` file's) with each flag given on the command
+    line applied over the field it sets, as :func:`config_from_args` sets
+    it; the fields no given flag names keep the file's values."""
+    import dataclasses
+
+    flags = config_from_args(args)
+    sections: dict = {}
+    for dest in sorted(explicit_cli_args(parser, argv) & FLAG_FIELDS.keys()):
+        section, field = FLAG_FIELDS[dest]
+        sections.setdefault(section, {})[field] = getattr(
+            getattr(flags, section), field)
+    return dataclasses.replace(cfg, **{
+        section: dataclasses.replace(getattr(cfg, section), **kw)
+        for section, kw in sections.items()})
 
 
 def explicit_cli_args(parser: argparse.ArgumentParser, argv=None) -> set:

@@ -6,26 +6,37 @@ Example (the flagship, BASELINE config #3), on the card:
         --output-strat dsnt --reg js --reg-coeff 1.0 --hm-sigma 1.0 \
         --batch-size 32 --epochs 120
 
-``--device cpu`` runs it on the host.  ``--dashboard-port``,
-``--profile-dir``, ``--debug-nans`` and ``--model-parallel`` > 1 are not
-ported yet and raise ``NotImplementedError`` when given.
+``--config configs/vit_s16_dsnt_2x.json`` runs a config file (the flags
+given beside it override its fields).  ``--device cpu`` runs it on the
+host.  ``--dashboard-port`` serves the
+live dashboard (:mod:`..train.dashboard`) while the run lasts,
+``--profile-dir`` writes a ``torch.profiler`` trace of the second epoch
+(:mod:`..train.profiling`), and ``--debug-nans`` stops at the first NaN
+(:func:`..train.loop.set_debug_nans`, process-wide as JAX's
+``jax_debug_nans``).  ``--model-parallel`` > 1 is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 
 from ..device import resolve_device
 from ..models.factory import build_pose_model
 from ..train.checkpoint import CheckpointManager
-from ..train.loop import Trainer
+from ..train.loop import Trainer, set_debug_nans
 from ..train.metrics import MetricWriter
+from ..utils.config import MODEL_VERSION, config_from_json
 from .common import (
+    add_config_arg,
     add_data_args,
     add_device_arg,
     add_model_args,
     add_train_args,
     config_from_args,
+    config_with_flags,
     experiment_dir,
     make_datasets,
     make_loaders,
@@ -38,29 +49,28 @@ def build_parser() -> argparse.ArgumentParser:
     add_data_args(p)
     add_train_args(p)
     add_device_arg(p)
+    add_config_arg(p)
     p.add_argument("--dashboard-port", type=int, default=0,
-                   help="serve a live metrics dashboard on this port "
-                        "(not ported yet)")
+                   help="serve a live metrics dashboard on this port while "
+                        "the run lasts")
     p.add_argument("--tensorboard", action="store_true",
                    help="also mirror scalar metrics to <out-dir>/tb "
                         "TensorBoard event files")
     p.add_argument("--debug-nans", action="store_true",
-                   help="stop at the first NaN (not ported yet)")
+                   help="stop at the first NaN with FloatingPointError: "
+                        "autograd's anomaly mode, and each train step checks "
+                        "its loss and gradients (unlike jax_debug_nans, a NaN "
+                        "made in the forward pass is caught at the loss, not "
+                        "at its op); process-wide")
     p.add_argument("--profile-dir", default="",
-                   help="capture a profiler trace of early steps here "
-                        "(not ported yet)")
+                   help="write a torch.profiler trace of the second epoch "
+                        "here (a breakdown, not a timing)")
     return p
 
 
 def refuse_unported(args):
     """Raise for the flags whose machinery is not ported yet, naming the
     ROADMAP item that brings it."""
-    for flag, given in (("--dashboard-port", args.dashboard_port),
-                        ("--profile-dir", args.profile_dir),
-                        ("--debug-nans", args.debug_nans)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP Queue 1, Telemetry)")
     if args.model_parallel > 1:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel} is not ported yet "
@@ -68,10 +78,21 @@ def refuse_unported(args):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     refuse_unported(args)
     device = resolve_device(args.device)
-    cfg = config_from_args(args)
+    if args.debug_nans:
+        set_debug_nans(True)
+    if args.config:
+        with open(args.config) as f:
+            cfg = config_with_flags(config_from_json(f.read()), args, parser, argv)
+        # A preset without the field reads as model_version 0 (a checkpoint
+        # of an older graph); this run builds the current graph.
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, model_version=MODEL_VERSION))
+    else:
+        cfg = config_from_args(args)
     model = build_pose_model(cfg.model, device=device, seed=cfg.train.seed)
     out_dir = experiment_dir(cfg)
 
@@ -104,12 +125,37 @@ def main(argv=None):
             print(f"resumed from epoch {meta['epoch']}"
                   + (f" step {start_step}" if start_step else ""))
 
-    state, best = trainer.run(state, start_epoch=start_epoch,
-                              best_pckh=best_pckh, start_step=start_step)
+    with contextlib.ExitStack() as telemetry:
+        trainer.hooks = start_telemetry(args, out_dir, telemetry)
+        state, best = trainer.run(state, start_epoch=start_epoch,
+                                  best_pckh=best_pckh, start_step=start_step)
     print(f"done; best val PCKh@0.5 = {100 * best:.2f}")
     writer.close()
     ckpt.close()
     return 0
+
+
+def start_telemetry(args, out_dir: str, stack: contextlib.ExitStack) -> tuple:
+    """Start the dashboard server and make the profile hook that the flags
+    ask for, each stopped when ``stack`` closes (the server when the run
+    ends; a profile still running, unwritten); returns the Trainer's
+    hooks.  One process trains, so it serves the dashboard (the JAX
+    package's process 0)."""
+    hooks = ()
+    if args.dashboard_port:
+        from ..train.dashboard import serve
+
+        server = serve(out_dir, args.dashboard_port)
+        stack.callback(server.server_close)
+        stack.callback(server.shutdown)
+        print(f"dashboard: http://localhost:{args.dashboard_port}/")
+    if args.profile_dir:
+        from ..train.profiling import make_profile_hook
+
+        hook = make_profile_hook(args.profile_dir)
+        stack.callback(hook.close)
+        hooks = (hook,)
+    return hooks
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Model factory (port of ``dsnt_pose2d_tpu/models/factory.py``: the
-hourglass and ResNet bases; the ViT is not ported yet).
+hourglass, ResNet and ViT bases).
 
 :class:`PoseModel` bundles the ``nn.Module`` with the config's loss and
 decode functions, the same surface as the JAX package's ``PoseModel``.
 Weights come from a seeded :class:`torch.Generator` with flax's default
-initializers (LeCun-normal conv kernels, zero biases, unit BN scales, the
-fc head's kernel normal with std 1e-3), or are converted from flax
-variables by :mod:`.from_jax`.
+initializers (LeCun-normal conv and dense kernels, zero biases, unit BN
+and LayerNorm scales, the ViT's position embeddings normal with std 0.02,
+the fc head's kernel normal with std 1e-3), or are converted from flax
+variables by :mod:`.from_jax`.  ``cfg.remat`` reaches the hourglass and
+the ViT; a ResNet ignores it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ from ..utils.config import ModelConfig
 from .heads import PoseOutput, decode_coords, pose_loss
 from .hourglass import HourglassNet
 from .resnet import RESNET_SPECS, ResNetPose
+from .vit import LayerNorm, ViTPose
+
+# (embed dim, depth, heads); 16px patches, stride-8 heatmaps.
+VIT_SPECS = {
+    "vit_t16": (192, 4, 3),
+    "vit_s16": (384, 12, 6),
+    "vit_b16": (768, 12, 12),
+}
 
 # flax's lecun_normal draws from a normal truncated at 2 std, rescaled by
 # this factor so the variance is exactly 1 / fan_in.
@@ -35,22 +45,24 @@ class PoseNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP Queue 1, ViT and remat)")
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         if cfg.base.startswith("hg"):
             self.backbone = HourglassNet(
                 num_stacks=int(cfg.base[2:]), num_joints=cfg.num_joints,
-                features=cfg.hg_features, depth=cfg.hg_depth, dtype=dtype)
+                features=cfg.hg_features, depth=cfg.hg_depth, dtype=dtype,
+                remat=cfg.remat)
         elif cfg.base in RESNET_SPECS:
             self.backbone = ResNetPose(
                 arch=cfg.base, num_joints=cfg.num_joints, dilate=cfg.dilate,
                 truncate=cfg.truncate, dtype=dtype)
+        elif cfg.base in VIT_SPECS:
+            dim, depth, heads = VIT_SPECS[cfg.base]
+            self.backbone = ViTPose(
+                num_joints=cfg.num_joints, dim=dim, depth=depth,
+                num_heads=heads, input_size=cfg.resolved_input_size,
+                dtype=dtype, remat=cfg.remat)
         else:
-            raise NotImplementedError(
-                f"base={cfg.base!r} is not ported yet (ROADMAP Queue 1, ViT "
-                "and remat)")
+            raise ValueError(f"unknown base model {cfg.base!r}")
         self.fc_head_kernel = self.fc_head_bias = None
         if cfg.output_strat == "fc":
             side = self.backbone.output_side(cfg.resolved_input_size)
@@ -114,10 +126,14 @@ class PoseModel:
 
 @torch.no_grad()
 def init_weights(net: nn.Module, generator: torch.Generator):
-    """flax-default initialization drawn from ``generator`` (CPU tensors):
-    the convs in module order, then the fc head."""
+    """flax-default initialization drawn from ``generator`` (CPU tensors),
+    in module order, then the fc head: LeCun-normal conv and dense kernels
+    (fan-in ``in_channels * kh * kw`` or ``in_features``; the ViT's ``qkv``
+    too, whose flax kernel is ``(D, 3, H, hd)`` over fan-in ``D``), zero
+    biases, unit/zero BN and LayerNorm affines, and the ViT's position
+    embeddings normal with std 0.02 (not truncated)."""
     for mod in net.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,
@@ -126,6 +142,12 @@ def init_weights(net: nn.Module, generator: torch.Generator):
                 mod.bias.zero_()
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, ViTPose):
+            mod.pos_row.normal_(0.0, 0.02, generator=generator)
+            mod.pos_col.normal_(0.0, 0.02, generator=generator)
     if getattr(net, "fc_head_kernel", None) is not None:
         net.fc_head_kernel.normal_(0.0, 1e-3, generator=generator)
         net.fc_head_bias.zero_()

@@ -1,14 +1,18 @@
-"""Map flax ``PoseNet`` / ``HourglassNet`` / ``ResNetPose`` variables onto
-the port's state dict.
+"""Map flax ``PoseNet`` / ``HourglassNet`` / ``ResNetPose`` / ``ViTPose``
+variables onto the port's state dict.
 
 The port's submodules carry the flax names, so the mapping is a walk over
-the same tree with two layout changes: conv kernels HWIO -> OIHW, and BN
+the same tree with these layout changes: conv kernels HWIO -> OIHW; BN
 ``scale/bias`` + ``batch_stats{mean,var}`` -> ``weight/bias/running_mean/
-running_var``.  The fc head's ``fc_head_kernel`` (J, H*W, 2) and
-``fc_head_bias`` (J, 2) keep their names and layout.  The variables are
-nested dicts of numpy arrays (``params`` and ``batch_stats``); numpy only,
-so it needs no JAX at run time.  :func:`pose_net_from_jax` picks the walk
-by the config's base.
+running_var``; LayerNorm ``scale/bias`` -> ``weight/bias``; dense kernels
+``(in, out)`` -> ``(out, in)``, the ViT's ``qkv`` kernel ``(D, 3, H, hd)``
+flattened to ``(D, 3D)`` first (bias ``(3, H, hd)`` to ``(3D,)``).  The fc
+head's ``fc_head_kernel`` (J, H*W, 2) and ``fc_head_bias`` (J, 2) keep
+their names and layout.  The variables are nested dicts of numpy arrays
+(``params``, and ``batch_stats`` where the model has BN; a ViT has none);
+numpy only, so it needs no JAX at run time.  flax's ``nn.remat`` keeps the
+module names, so variables of a model made with ``remat=True`` map the
+same.  :func:`pose_net_from_jax` picks the walk by the config's base.
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ def _backbone(variables: dict):
     """``(params, batch_stats, key prefix)`` of the backbone: under
     ``backbone`` for a flax ``PoseNet`` (keys for the port's ``PoseNet``),
     else the variables themselves (keys for the bare backbone)."""
-    p, bs = variables["params"], variables["batch_stats"]
+    p, bs = variables["params"], variables.get("batch_stats", {})
     if "backbone" in p:
-        return p["backbone"], bs["backbone"], "backbone."
+        return p["backbone"], bs.get("backbone", {}), "backbone."
     return p, bs, ""
 
 
@@ -101,13 +105,49 @@ def resnet_from_jax(variables: dict) -> dict:
     return {prefix + k: v for k, v in out.items()}
 
 
+def _put_dense(out: dict, prefix: str, p: dict):
+    kernel = np.asarray(p["kernel"])
+    fan_in = kernel.shape[0]
+    out[f"{prefix}.weight"] = np.ascontiguousarray(kernel.reshape(fan_in, -1).T)
+    out[f"{prefix}.bias"] = np.asarray(p["bias"]).reshape(-1)
+
+
+def _put_ln(out: dict, prefix: str, p: dict):
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def vit_from_jax(variables: dict) -> dict:
+    """flax ``ViTPose`` (or ``PoseNet`` over one) variables -> state dict of
+    numpy arrays; the blocks are those the variables hold."""
+    p, _, prefix = _backbone(variables)
+    out: dict = {}
+    for name in ("patch_embed", "up_proj", "refine", "score"):
+        _put_conv(out, name, p[name])
+    for name in ("pos_row", "pos_col"):
+        out[name] = np.asarray(p[name])
+    blocks = sorted((k for k in p if k.startswith("block")),
+                    key=lambda k: int(k[len("block"):]))
+    for name in blocks:
+        for ln in ("ln1", "ln2"):
+            _put_ln(out, f"{name}.{ln}", p[name][ln])
+        for dense in ("qkv", "proj", "fc1", "fc2"):
+            _put_dense(out, f"{name}.{dense}", p[name][dense])
+    _put_ln(out, "ln_out", p["ln_out"])
+    return {prefix + k: v for k, v in out.items()}
+
+
 def pose_net_from_jax(variables: dict, cfg) -> dict:
     """flax ``PoseNet`` variables of ``cfg`` (a ``ModelConfig``) -> the
     port's ``PoseNet`` state dict, fc head included."""
     if cfg.base.startswith("hg"):
         out = hourglass_from_jax(variables, int(cfg.base[2:]), cfg.hg_depth)
-    else:
+    elif cfg.base.startswith("resnet"):
         out = resnet_from_jax(variables)
+    elif cfg.base.startswith("vit"):
+        out = vit_from_jax(variables)
+    else:
+        raise ValueError(f"unknown base model {cfg.base!r}")
     for name in ("fc_head_kernel", "fc_head_bias"):
         if name in variables["params"]:
             out[name] = np.asarray(variables["params"][name])

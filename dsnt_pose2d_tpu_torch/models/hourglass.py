@@ -8,20 +8,55 @@ NCHW inside.  With ``dtype=torch.bfloat16`` (or fp16) the convs run under
 autocast while parameters and BN statistics stay fp32, as flax does; any
 other dtype runs as it is (``HourglassNet(dtype=torch.float64).double()``
 is the fp64 model of the parity tests).  :class:`BatchNorm` follows the
-module's ``training`` flag, as flax's ``train`` argument.
+module's ``training`` flag, as flax's ``train`` argument.  With
+``remat=True`` each hourglass stack runs under :func:`remat` in training,
+as the JAX package's ``nn.remat(Hourglass)``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9     # flax's convention: the weight of the old statistic
 _AUTOCAST_DTYPES = (torch.bfloat16, torch.float16)
+
+# Set in the thread that recomputes a :func:`remat` scope's forward in the
+# backward pass (autograd's device threads do that on the card).
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)`` with its activations recomputed in the backward
+    pass instead of kept (flax's ``nn.remat``): non-reentrant
+    ``torch.utils.checkpoint``, which restores the forward's autocast
+    state in the recompute.  :class:`BatchNorm` moves its running
+    statistics in the forward only, not again in the recompute, so they
+    move once a step as flax's do.  Nothing in the scopes draws random
+    numbers, so the RNG state is not stashed."""
+    return torch.utils.checkpoint.checkpoint(
+        module, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=_remat_contexts)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -35,7 +70,9 @@ class BatchNorm(nn.BatchNorm2d):
     cast back to the input's dtype; the running statistics move by
     ``r <- 0.9 r + 0.1 stat`` with the BIASED batch variance, where stock
     ``BatchNorm2d`` takes the unbiased one.  ``num_batches_tracked`` is not
-    advanced (flax has no such counter).
+    advanced (flax has no such counter).  When a :func:`remat` scope
+    recomputes the forward in the backward pass, the running statistics do
+    not move again.
     """
 
     def __init__(self, ch: int):
@@ -48,14 +85,18 @@ class BatchNorm(nn.BatchNorm2d):
         dims = (0, 2, 3)
         mean = xf.mean(dim=dims)
         var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            m = _BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not getattr(_RECOMPUTE, "on", False):
+            self._update_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = ((xf - mean[:, None, None]) * mul[:, None, None]
              + self.bias[:, None, None])
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        m = _BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
 def _bn(ch: int) -> BatchNorm:
@@ -124,10 +165,11 @@ class HourglassNet(nn.Module):
 
     def __init__(self, num_stacks: int = 8, num_joints: int = 16,
                  features: int = 256, depth: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.num_stacks = num_stacks
         self.dtype = dtype
+        self.remat = remat
         planes = features // 2
         # Symmetric (3, 3) stem padding: the torch/Newell convention the JAX
         # package pins explicitly (MODEL_VERSION 2).
@@ -166,8 +208,10 @@ class HourglassNet(nn.Module):
             x = F.max_pool2d(x, 2, 2)
             x = self.stem_res3(self.stem_res2(x))
             scores = []
+            checkpointed = self.remat and self.training and torch.is_grad_enabled()
             for i in range(self.num_stacks):
-                y = getattr(self, f"hg{i}")(x)
+                hg = getattr(self, f"hg{i}")
+                y = remat(hg, x) if checkpointed else hg(x)
                 y = getattr(self, f"post_res{i}")(y)
                 y = F.relu(getattr(self, f"fc{i}_bn")(
                     getattr(self, f"fc{i}_conv")(y)))

@@ -32,6 +32,7 @@ pixels.
 
 :class:`EvalDriver` is the evaluate/infer path without the Trainer: a
 restore template, the eval pass, and ``predict`` in dataset order.
+:func:`set_debug_nans` makes every train step stop at the first NaN.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from ..evaluation.pckh import PCKhEvaluator, pckh_batch_counts
 from ..models.factory import PoseModel
 from ..utils.config import Config
 from ..utils.visualization import render_skeleton, save_png
-from .state import TrainState, create_train_state, step_seed
+from .state import TrainState, create_train_state, global_norm, step_seed
 
 # The head's aux values that a train step reports, where its head has them.
 AUX_METRICS = ("euclidean", "reg", "mse")
@@ -66,6 +67,44 @@ BATCH_KEYS = ("canvases", "coords_px", "mask", "head_length",
 # pins its input batch in device memory, and a read right after a dispatch
 # would wait for it.
 _MAX_INFLIGHT = 4
+
+
+_DEBUG_NANS = False
+
+
+def set_debug_nans(on: bool):
+    """Stop training at the first NaN (the train CLI's ``--debug-nans``; the
+    JAX package's ``jax_debug_nans``), process-wide until switched off.
+
+    It turns on autograd's anomaly mode (a backward function that returns
+    NaN raises, with the forward op's traceback) and makes every train step
+    check its loss before the backward pass and its gradients after it,
+    before the optimizer step, raising ``FloatingPointError``.  Unlike
+    JAX's, a NaN made in the forward pass is caught at the loss, not at the
+    op that made it, and the checks wait for the step (one device sync
+    each).
+    """
+    global _DEBUG_NANS
+    _DEBUG_NANS = bool(on)
+    torch.autograd.set_detect_anomaly(_DEBUG_NANS)
+
+
+def _backward_checked(loss: torch.Tensor, named_params):
+    """``loss.backward()`` under :func:`set_debug_nans`: a non-finite loss,
+    a backward function that returns NaN (anomaly mode) or a non-finite
+    gradient raises ``FloatingPointError``."""
+    if not torch.isfinite(loss).all():
+        raise FloatingPointError(f"debug_nans: the loss is {loss.item()}")
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        if "returned nan values" in str(e):
+            raise FloatingPointError(f"debug_nans: {e}") from e
+        raise
+    named = [(n, p.grad) for n, p in named_params if p.grad is not None]
+    if not torch.isfinite(global_norm([g for _, g in named])):
+        bad = next(n for n, g in named if not torch.isfinite(g).all())
+        raise FloatingPointError(f"debug_nans: the gradient of {bad} is not finite")
 
 
 def normalized_to_crop_px(coords_norm: torch.Tensor, size: int) -> torch.Tensor:
@@ -139,7 +178,9 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
                   steps_per_epoch: int = 1):
     """Train step: ``step(batch, draws=None) -> {loss, grad_norm, ...}``,
     plus the head's ``euclidean``, ``reg`` and ``mse`` where its aux has
-    them (dsnt: euclidean and reg; gauss: mse; fc: euclidean).
+    them (dsnt: euclidean and reg; gauss: mse; fc: euclidean).  Under
+    :func:`set_debug_nans` a NaN loss or gradient raises
+    ``FloatingPointError`` before the optimizer step.
 
     The step's :class:`.state.TrainState` (step count, model, optimizer
     chain, seed) is ``step.state``; each call advances it by one optimizer
@@ -165,7 +206,10 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
         output = model.forward(pre["images"], train=True)
         loss, aux = model.loss(output, pre["coords"], pre["mask"])
         state.optimizer.zero_grad()
-        loss.backward()
+        if _DEBUG_NANS:
+            _backward_checked(loss, model.net.named_parameters())
+        else:
+            loss.backward()
         grad_norm = state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm,

@@ -1,5 +1,7 @@
 """Helpers shared by the port's parity tests (``tests/test_torch_*.py``)."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,16 +50,70 @@ def jax_train_draws(key, batch: int, cfg) -> dict:
 
 
 def jax_backbone(base: str, num_joints: int, dtype, features: int = 32,
-                 depth: int = 4, dilate: int = 0, truncate: int = 0):
-    """The bare flax backbone of ``base`` (``hg*`` or ``resnet*``) in ``dtype``."""
+                 depth: int = 4, dilate: int = 0, truncate: int = 0,
+                 remat: bool = False):
+    """The bare flax backbone of ``base`` (``hg*``, ``resnet*`` or
+    ``vit*``) in ``dtype``, as the JAX package's ``PoseNet`` makes it."""
+    from dsnt_pose2d_tpu.models.factory import VIT_SPECS
     from dsnt_pose2d_tpu.models.hourglass import HourglassNet
     from dsnt_pose2d_tpu.models.resnet import ResNetPose
+    from dsnt_pose2d_tpu.models.vit import ViTPose
 
     if base.startswith("hg"):
         return HourglassNet(num_stacks=int(base[2:]), num_joints=num_joints,
-                            features=features, depth=depth, dtype=dtype)
+                            features=features, depth=depth, dtype=dtype,
+                            remat=remat)
+    if base in VIT_SPECS:
+        dim, vdepth, heads = VIT_SPECS[base]
+        return ViTPose(num_joints=num_joints, dim=dim, depth=vdepth,
+                       num_heads=heads, dtype=dtype, remat=remat)
     return ResNetPose(arch=base, num_joints=num_joints, dilate=dilate,
                       truncate=truncate, dtype=dtype)
+
+
+@contextlib.contextmanager
+def vit_fp64_reference():
+    """The JAX package's ViT with its two fp32 pins lifted to fp64, for the
+    fp64 parity tests: its LayerNorms are made with ``dtype=float32``
+    (statistics and output in fp32 even in an fp64 model) and
+    ``jax.nn.dot_product_attention`` takes its softmax in fp32 whatever the
+    dtype.  Inside the block the module's LayerNorms compute at fp64 and
+    its attention is the same XLA core (logits scaled by 1/sqrt(head_dim),
+    softmax, probabilities times v) in the inputs' dtype, so an fp64 model
+    is fp64 throughout, as the port's is.  Nothing of the JAX package is
+    changed: the module's ``nn`` and ``jax`` names are swapped for the
+    block's duration."""
+    import flax.linen as fnn
+
+    from dsnt_pose2d_tpu.models import vit as jvit
+
+    def attention(q, k, v):
+        logits = jnp.einsum("BTNH,BSNH->BNTS", q, k)
+        logits = logits * jnp.asarray(1.0 / np.sqrt(q.shape[-1]), logits.dtype)
+        probs = jax.nn.softmax(logits, axis=-1).astype(k.dtype)
+        return jnp.einsum("BNTS,BSNH->BTNH", probs, v)
+
+    class _Linen:
+        def __getattr__(self, name):
+            return getattr(fnn, name)
+
+        @staticmethod
+        def LayerNorm(dtype=None, **kw):
+            return fnn.LayerNorm(dtype=jnp.float64, **kw)
+
+    class _Jax:
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        class nn:
+            dot_product_attention = staticmethod(attention)
+
+    saved = jvit.nn, jvit.jax
+    jvit.nn, jvit.jax = _Linen(), _Jax()
+    try:
+        yield
+    finally:
+        jvit.nn, jvit.jax = saved
 
 
 def fp64_train_step(model_kw: dict, loss_fns, batch: int = 2, seed: int = 0):
@@ -71,6 +127,8 @@ def fp64_train_step(model_kw: dict, loss_fns, batch: int = 2, seed: int = 0):
     JAX ``PoseNet`` applies it; the port side is its ``PoseNet`` in fp64
     (``.double()``, the backbone's dtype fp64), loaded through
     ``pose_net_from_jax``.  Both take one step of their RMSProp chain.
+    ``model_kw`` may ask for ``remat``; a ViT's JAX side runs under
+    :func:`vit_fp64_reference`, and its ``after`` has no BN statistics.
     Returns ``(got, exp)`` namespaces of ``loss``, ``aux``, ``grads`` and
     ``after`` (parameters and BN statistics) under the port's names.
     """
@@ -95,12 +153,16 @@ def fp64_train_step(model_kw: dict, loss_fns, batch: int = 2, seed: int = 0):
     t = rng.uniform(-0.7, 0.7, size=(batch, j, 2))
     mask = (rng.uniform(size=(batch, j)) > 0.2).astype(np.float64)
     jax_loss, port_loss = loss_fns
-    with jax.enable_x64(True):
+    vit = jcfg.base.startswith("vit")
+    with jax.enable_x64(True), (vit_fp64_reference() if vit
+                                else contextlib.nullcontext()):
         backbone = jax_backbone(jcfg.base, j, jnp.float64, jcfg.hg_features,
-                                jcfg.hg_depth, jcfg.dilate, jcfg.truncate)
+                                jcfg.hg_depth, jcfg.dilate, jcfg.truncate,
+                                jcfg.remat)
         init = backbone.init(jax.random.PRNGKey(seed), jnp.asarray(x), train=False)
+        # A ViT has no BN, so no batch_stats collection.
         variables = {"params": {"backbone": init["params"]},
-                     "batch_stats": {"backbone": init["batch_stats"]}}
+                     "batch_stats": {"backbone": init.get("batch_stats", {})}}
         if jcfg.output_strat == "fc":
             hw = np.prod(backbone.apply(init, jnp.asarray(x[:1]),
                                         train=False).shape[-2:])
@@ -123,7 +185,7 @@ def fp64_train_step(model_kw: dict, loss_fns, batch: int = 2, seed: int = 0):
                                 p["fc_head_kernel"]) + p["fc_head_bias"]
             loss, aux = jax_loss(jheads.PoseOutput(heatmaps=raw, fc_coords=fc),
                                  jnp.asarray(t), jnp.asarray(mask), jcfg)
-            return loss, (aux, mutated["batch_stats"])
+            return loss, (aux, mutated.get("batch_stats", {}))
 
         (loss_j, (aux_j, stats_j)), grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(params)

@@ -33,8 +33,9 @@ NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "cli.common", "cli.evaluate", "cli.infer", "cli.train",
                "data.loader", "data.mpii", "data.pack", "data.prepare",
                "data.resident", "models.import_torch", "models.resnet",
-               "native", "ops.cuda.calib", "ops.decode", "train.checkpoint",
-               "train.metrics", "utils.visualization")
+               "models.vit", "native", "ops.cuda.calib", "ops.decode",
+               "train.checkpoint", "train.dashboard", "train.metrics",
+               "train.profiling", "utils.visualization")
 
 
 def test_importing_every_module_loads_no_jax():

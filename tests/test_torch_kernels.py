@@ -15,7 +15,10 @@ KL's log(g + eps) meets a pixel far from the target; row_shift bitwise (both
 round each product and the sum separately); the calibration kernels: copy
 bitwise (one fp32 add), exp rtol 1e-6 (full-precision expf against
 torch.exp), softmax rtol 2e-6 / atol 1e-9 (4096 terms summed in another
-order than torch.softmax).
+order than torch.softmax).  Last, ViT-T/16's train and eval steps at
+config #5's 448 px against the same steps on the kernels' plain versions,
+at ``chip_smoke.py``'s train and serve tolerances, and its train step with
+remat against the one without.
 """
 
 import numpy as np
@@ -461,3 +464,98 @@ def test_head_kernel_on_a_flipped_batch(cuda, reg):
     else:
         torch.testing.assert_close(got_r, exp_r, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(got_r, r, rtol=1e-5, atol=1e-5)
+
+
+# -- the ViT path (BASELINE config #5's head and warp shapes, ViT-T/16) ------
+
+
+def _plain_path(monkeypatch):
+    """The head's autograd Function on its plain forward and backward, and
+    the shear warp on row_shift's plain version."""
+    from dsnt_pose2d_tpu_torch.data import augment
+    from dsnt_pose2d_tpu_torch.ops.cuda import dsnt_head
+
+    def plain_bwd(raw2, t2, g_coords, g_reg, h, w, *args):
+        return fused_dsnt_head_bwd_reference(
+            raw2.view(-1, h, w), t2, g_coords, g_reg, *args).reshape(-1, h * w)
+
+    monkeypatch.setattr(dsnt_head, "_launch_fwd", dsnt_head._plain_fwd)
+    monkeypatch.setattr(dsnt_head, "_launch_bwd", plain_bwd)
+    monkeypatch.setattr(augment, "shift_rows", shift_rows_reference)
+
+
+def _vit_t16(device, remat=False):
+    """ViT-T/16 with config #5's head (448 px, 56x56 maps, dsnt, no
+    regularizer, bf16) from seed 0, its config and a batch of 4 synthetic
+    672-px canvases."""
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.utils.config import Config, ModelConfig
+
+    cfg = Config(model=ModelConfig(base="vit_t16", reg="none", remat=remat))
+    model = build_pose_model(cfg.model, device=device, seed=0)
+    assert model.heatmap_size == 56
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in make_synthetic_mpii(4, 672, seed=0).items()}
+    return cfg, model, batch
+
+
+@pytest.mark.cuda
+def test_vit_t16_train_step_matches_plain_path(cuda, monkeypatch):
+    # Train-row tolerances of chip_smoke.py: loss rel 1e-5, grad norm rel
+    # 1e-2 (cuDNN's and cuBLAS's bf16 backward sum in no fixed order).
+    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
+
+    cfg, model, batch = _vit_t16(cuda)
+    start = {k: v.clone() for k, v in model.net.state_dict().items()}
+    reset_launch_counts()
+    got = make_train_fn(model, cfg, device=cuda)(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["dsnt_head_fwd"], counts["dsnt_head_bwd"], counts["row_shift"]) == (1, 1, 2)
+    _, plain, _ = _vit_t16(cuda)
+    plain.net.load_state_dict(start)
+    _plain_path(monkeypatch)
+    reset_launch_counts()
+    exp = make_train_fn(plain, cfg, device=cuda)(batch)
+    torch.cuda.synchronize()
+    assert not any(launch_counts().values())
+    assert abs(got["loss"].item() - exp["loss"].item()) <= 1e-5 * abs(exp["loss"].item())
+    assert abs(got["grad_norm"].item() - exp["grad_norm"].item()) <= (
+        1e-2 * exp["grad_norm"].item())
+
+
+@pytest.mark.cuda
+def test_vit_t16_eval_step_matches_plain_path(cuda, monkeypatch):
+    # Serve-row tolerances: loss rel 1e-5, pred_orig within 0.01 px.
+    from dsnt_pose2d_tpu_torch.train.loop import make_eval_fn
+
+    cfg, model, batch = _vit_t16(cuda)
+    step = make_eval_fn(model, cfg, device=cuda)
+    reset_launch_counts()
+    got = step(batch)
+    torch.cuda.synchronize()
+    # The head twice (the loss, the decode), row_shift twice (the warp).
+    assert (launch_counts()["dsnt_head_fwd"], launch_counts()["row_shift"]) == (2, 2)
+    _plain_path(monkeypatch)
+    exp = step(batch)
+    assert abs(got["loss"].item() - exp["loss"].item()) <= 1e-5 * abs(exp["loss"].item())
+    assert (got["pred_orig"] - exp["pred_orig"]).abs().max().item() <= 1e-2
+    assert torch.equal(got["pckh_correct"], exp["pckh_correct"])
+
+
+@pytest.mark.cuda
+def test_vit_t16_remat_step_matches_no_remat(cuda, monkeypatch):
+    # The same weights and draws with each block recomputed in the
+    # backward pass: the same loss, and grad norms within the train row's
+    # 1e-2.
+    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    out = {}
+    for remat in (False, True):
+        cfg, model, batch = _vit_t16(cuda, remat)
+        out[remat] = make_train_fn(model, cfg, device=cuda)(batch)
+    assert torch.equal(out[True]["loss"], out[False]["loss"])
+    assert abs(out[True]["grad_norm"].item() - out[False]["grad_norm"].item()) <= (
+        1e-2 * out[False]["grad_norm"].item())
