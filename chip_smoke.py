@@ -33,13 +33,24 @@ heads, train steps and a flip x 3-scale eval step each, and fc through
 the ResNet-50 2x model, then its train step with remat against the same
 step without, ``vit_remat``), ``remat`` (the flagship hg8 train step with
 remat against without: losses and BN statistics bitwise, peak memory and
-step time of each) and last ``telemetry`` (``cli.train`` on the ViT in a
+step time of each), ``telemetry`` (``cli.train`` on the ViT in a
 process of its own with ``--profile-dir``, ``--dashboard-port`` and
-``--debug-nans``, and a NaN train step that must raise).
+``--debug-nans``, and a NaN train step that must raise) and last ``dp``,
+data parallelism: ``cli.train`` on the flagship under
+``torch.distributed.run --nproc_per_node=1`` (NCCL, world size 1) against
+the same run without a launcher, bitwise; then two ranks sharing the card
+over gloo against one process on the same global batch (bf16 hg8, 3
+steps; fp32 hg2 at the flagship's widths, an eval pass, ``predict`` and a
+step), the ranks bitwise equal to each other and held relative to
+one-process runs of the same math in other orders, each rank's head and
+row_shift calls held against their plain versions.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
+
+(``--dp-rank <dir>`` and ``--dp-cli <flags>`` are the ``dp`` phase's own
+child processes.)
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last is the card's name and power limit as
@@ -152,7 +163,7 @@ VIT_CONFIG = ROOT / "configs" / "vit_s16_dsnt_2x.json"
 # rows (2 train steps an epoch, 16 val rows), 2 epochs.
 # remat against no remat: each step's median over this many windows, one
 # turn each (the hg8 step takes ~0.6-0.8 s).
-REMAT_REPS = 10
+REMAT_REPS = 5              # timed windows each way (the dp phase runs after)
 TELEMETRY_ROWS = 64
 TELEMETRY_TIMEOUT_S = 300
 TELEMETRY_KERNELS = ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift")
@@ -321,11 +332,11 @@ def head_inputs(n, h, w, seed, dev):
     return raw.to(dev), t.to(dev)
 
 
-def compare_head(raw, t, reg, preact, threshold=0.5):
+def compare_head(raw, t, reg, preact, threshold=0.5, sigma_px=1.0):
     from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
                                                 fused_dsnt_head_reference)
 
-    kw = dict(sigma_px=1.0, reg=reg, preact=preact, threshold=threshold)
+    kw = dict(sigma_px=sigma_px, reg=reg, preact=preact, threshold=threshold)
     got_c, got_r = fused_dsnt_head(raw, t, **kw)
     exp_c, exp_r = fused_dsnt_head_reference(raw, t, **kw)
     torch.cuda.synchronize()
@@ -504,6 +515,41 @@ def recording_row_shift(calls):
         yield calls
     finally:
         augment.shift_rows = kernel
+
+
+@contextlib.contextmanager
+def recording_head(calls):
+    """The heads' fused-head calls pass on to the kernels; the first call of
+    each input shape, with and without autograd, is kept in ``calls`` as
+    ``{"raw", "t", "kw", "gc", "gr"}``: its inputs and, once the backward
+    pass has run, the cotangents of its coords and regularizer."""
+    from dsnt_pose2d_tpu_torch.models import heads
+
+    kernel = heads.fused_dsnt_head
+
+    def keep(call, name):
+        def hook(g):
+            call[name] = g.detach().clone()
+        return hook
+
+    def record(raw, t=None, **kw):
+        coords, reg = kernel(raw, t, **kw)
+        key = (*raw.shape, coords.requires_grad)
+        if key not in calls:
+            call = calls[key] = {"raw": raw.detach().clone(), "kw": kw,
+                                 "t": None if t is None else t.detach().clone(),
+                                 "gc": None, "gr": None}
+            if coords.requires_grad:
+                coords.register_hook(keep(call, "gc"))
+            if reg is not None and reg.requires_grad:
+                reg.register_hook(keep(call, "gr"))
+        return coords, reg
+
+    heads.fused_dsnt_head = record
+    try:
+        yield calls
+    finally:
+        heads.fused_dsnt_head = kernel
 
 
 @contextlib.contextmanager
@@ -2374,6 +2420,559 @@ def phase_cli(dev, card):
     return total
 
 
+# -- dp: data parallelism ----------------------------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 3               # bf16 train steps held rank against rank
+DP_VAL_ROWS = 40           # odd over 2 ranks of 16: the streams end in pad rows
+DP_FP32_MODEL = {"base": "hg2", "dtype": "float32"}   # the flagship's widths
+# Each rank step is held against one process taking the same step on the
+# global batch from the same state: the first from the tempered weights,
+# each later one from rank 0's parameters, BN statistics and optimizer
+# state before it (the trajectories themselves part after the first step:
+# RMSProp's first update is about 10 lr sign(g), so wherever rounding
+# decided the sign of a gradient element the parameter moves 20 lr apart,
+# in any two sound runs).  The ranks' readings are limited relative to
+# witnesses, the same one-process step from the same state with the
+# batch's rows (and their draws) reversed or permuted: the same math in
+# other sum orders.  Each reading (the relative error of the loss and the
+# grad norm at every step; in fp32 also the running statistics' worst
+# error of their tensor's largest value, the gradients' of the model's
+# largest gradient, and the share of updated parameters further than 5% of
+# a full RMSProp step, 10 lr, from the reference's) may be at most the
+# larger of its floor and DP_WITNESS_FACTOR times the worst witness's.
+# The floors are the bounds this phase was first given (bf16 1e-2, PERF.md
+# section 2; fp32 loss 1e-5, grad norm 1e-4, statistics 1e-5 of max) and
+# tests/test_torch_train_step.py's rule for an fp32 RMSProp step (at most
+# 5% of the elements further than 5% of a step).  In fp32 the gradients
+# follow the order of the BN statistics' sums (flax's fast variance;
+# ROADMAP Queue 3).  The biases whose gradient is 0 in exact arithmetic
+# are left out (their fp32 gradient is all noise): the score convs' (a
+# softmax is blind to a constant logit) and fc_back's and score_back's (the
+# next stack's train-mode BNs remove a constant offset).
+DP_ZERO_GRAD = re.compile(r"\.(score|fc_back|score_back)\d+\.bias$")
+DP_WITNESSES = {"reversed_rows": np.arange(BATCH)[::-1].copy(),
+                "permuted_rows": np.random.default_rng(1).permutation(BATCH),
+                "permuted_rows_2": np.random.default_rng(2).permutation(BATCH)}
+DP_WITNESS_FACTOR = 3.0
+DP_TOL = {"bf16": {"loss_rel": 1e-2, "grad_norm_rel": 1e-2},
+          "fp32": {"loss_rel": 1e-5, "grad_norm_rel": 1e-4,
+                   "running_stats_err_of_max": 1e-5,
+                   "grads_err_of_model_max": 3e-2,
+                   "params_share_off_5pct_step": 0.05},
+          "witness_factor": DP_WITNESS_FACTOR, "pred_orig_px": 1e-3}
+DP_TIMEOUT_S = 420
+DP_RANK_DEVICE = "cuda:0"  # both ranks, explicitly
+DP_NCCL_LINE = "distributed: backend=nccl world_size=1 device=cuda:0"
+DP_CLI = CLI_MODEL + ["--batch-size", str(BATCH), "--epochs", "1",
+                      "--data-source", "synthetic", "--canvas-size",
+                      str(CANVAS), "--synthetic-size", str(CLI_ROWS),
+                      "--device-resident", "on", "--steps-per-dispatch", "4"]
+
+
+def dp_config(kind):
+    import dataclasses
+
+    from dsnt_pose2d_tpu_torch.utils.config import config_from_json
+
+    cfg = config_from_json(CONFIG.read_text())
+    if kind == "fp32":
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **DP_FP32_MODEL))
+    return cfg
+
+
+def dp_digest(net) -> str:
+    """SHA-256 of every parameter and BN statistic, in state-dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in net.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_snapshot(state) -> dict:
+    """A train state's parameters, BN statistics, optimizer state, step and
+    count, on the host."""
+    opt = state.optimizer.optimizer.state_dict()
+    return {"net": {k: v.detach().cpu().clone()
+                    for k, v in state.model.net.state_dict().items()},
+            "opt": {"param_groups": opt["param_groups"],
+                    "state": {i: {k: v.cpu().clone() if torch.is_tensor(v) else v
+                                  for k, v in st.items()}
+                              for i, st in opt["state"].items()}},
+            "step": state.step, "count": state.optimizer.count}
+
+
+def dp_restore(state, snap):
+    """:func:`dp_snapshot`'s state back into ``state``, in place."""
+    state.model.net.load_state_dict(snap["net"])
+    state.optimizer.optimizer.load_state_dict(snap["opt"])
+    state.step, state.optimizer.count = snap["step"], snap["count"]
+
+
+def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
+             eval_state_dict=None, starts=None) -> dict:
+    """The dp phase's path for one precision, in one process (``mesh`` None)
+    or as one rank: for fp32 without ``order`` first the eval pass and
+    ``predict`` over DP_VAL_ROWS rows with ``eval_state_dict`` (the
+    weights tempered in eval mode); then train steps from ``state_dict`` on
+    this process's rows of the global batch (the synthetic batch of BATCH
+    rows), each followed by a digest of the state; the collectives, the
+    gradient all-reduce's device time (CUDA events), the step times and the
+    peak memory.  A rank runs DP_STEPS (bf16) or 1 (fp32) steps in a row;
+    rank 0 keeps a :func:`dp_snapshot` before each step after the first,
+    and each rank then holds its head and row_shift calls against their
+    plain versions (:func:`dp_kernels_vs_plain`).  One process runs one
+    step from each of ``starts`` (None: the state ``state_dict`` gives,
+    else a rank's snapshot).  With ``order`` (a witness of DP_WITNESSES):
+    the global batch and each step's draws with their rows in that
+    order."""
+    from dsnt_pose2d_tpu_torch.data.loader import ShardedLoader
+    from dsnt_pose2d_tpu_torch.data.mpii import ArrayDataset
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+    from dsnt_pose2d_tpu_torch.device import strict_fp32
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.parallel import mesh as pmesh
+    from dsnt_pose2d_tpu_torch.train import loop
+    from dsnt_pose2d_tpu_torch.train import state as tstate
+
+    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    if starts is None:
+        starts = [None] * (DP_STEPS if kind == "bf16" else 1)
+    model = build_pose_model(cfg.model, device=dev, state_dict=state_dict)
+    out = {"kind": kind, "world": world, "rank": rank,
+           "bns": sum(isinstance(m, torch.nn.BatchNorm2d)
+                      for m in model.net.modules())}
+    heads_seen, shifts_seen = {}, {}
+    recording = contextlib.ExitStack()
+    if mesh is not None:
+        recording.enter_context(recording_head(heads_seen))
+        recording.enter_context(recording_row_shift(shifts_seen))
+    with strict_fp32() if kind == "fp32" else contextlib.nullcontext(), \
+            recording:
+        if kind == "fp32" and order is None:
+            val = ArrayDataset(make_synthetic_mpii(DP_VAL_ROWS, CANVAS, seed=5))
+            loader = ShardedLoader(val, BATCH, shuffle=False, drop_last=False,
+                                   num_hosts=world, host_id=rank)
+            driver = loop.EvalDriver(
+                model=build_pose_model(cfg.model, device=dev,
+                                       state_dict=eval_state_dict),
+                cfg=cfg, loader=loader, device=dev, mesh=mesh)
+            ev = driver.evaluate()
+            out["eval"] = {"loss": ev["loss"],
+                           "correct": ev["evaluator"].correct.tolist(),
+                           "total": ev["evaluator"].total.tolist()}
+            out["pred_orig"] = driver.predict()
+            out["gidx"] = np.concatenate(loader.global_index_batches(0))
+            del driver
+        host = make_synthetic_mpii(BATCH, CANVAS, seed=0)
+
+        def draws(i):
+            if order is None:
+                return None
+            rows = torch.as_tensor(order, device=dev)
+            return {k: None if v is None else v[rows] for k, v in loop._rank_draws(
+                BATCH, cfg, dev, tstate.step_seed(cfg.train.seed, i)).items()}
+
+        if order is not None:
+            host = {k: v[order] for k, v in host.items()}
+        if mesh is None:
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        else:
+            batch = pmesh.shard_batch(mesh, host)
+        step = loop.make_train_fn(model, cfg, device=dev)
+        base_reduce, events = tstate.all_reduce_grads_, []
+
+        def timed_reduce(grads, *args, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            n = base_reduce(grads, *args, **kw)
+            e1.record()
+            events.append((e0, e1, n))
+            return n
+
+        tstate.all_reduce_grads_ = timed_reduce
+        rec = {"metrics": [], "digests": [], "collectives": [], "step_ms": [],
+               "snapshots": []}
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            for i, start in enumerate(starts):
+                if start is not None:
+                    dp_restore(step.state, start)
+                elif i and rank == 0 and mesh is not None:
+                    rec["snapshots"].append(dp_snapshot(step.state))
+                pmesh.reset_collective_counts()
+                t0 = time.perf_counter()
+                m = step(batch, draws(step.state.step))
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["collectives"].append(pmesh.collective_counts())
+                rec["metrics"].append({k: v.item() for k, v in m.items()})
+                rec["digests"].append(dp_digest(model.net))
+            rec["launches"] = kernels.launch_counts()
+        finally:
+            tstate.all_reduce_grads_ = base_reduce
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        rec["grad_all_reduce_ms"] = [e0.elapsed_time(e1) for e0, e1, _ in events]
+        rec["grad_buckets"] = [n for _, _, n in events]
+        out.update(rec)
+        if kind == "fp32":
+            out["state"] = {k: v.detach().cpu() for k, v in
+                            model.net.state_dict().items()}
+            out["grads"] = {k: p.grad.detach().cpu() for k, p in
+                            model.net.named_parameters()}
+    if mesh is not None:
+        out["kernels_vs_plain"] = dp_kernels_vs_plain(heads_seen, shifts_seen)
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_kernels_vs_plain(heads_seen, shifts_seen) -> dict:
+    """A rank's own kernel calls (:func:`recording_head`,
+    :func:`recording_row_shift`) against their plain versions: the head's
+    forward at HEAD_TOL, its backward on the step's cotangents at
+    HEAD_BWD_TOL, row_shift bitwise.  These launches come after the
+    counted run."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head_bwd,
+                                                fused_dsnt_head_bwd_reference)
+
+    fwd, bwd = [], []
+    for call in heads_seen.values():
+        raw, t, kw = call["raw"], call["t"], call["kw"]
+        err_c, err_r = compare_head(raw, t, kw["reg"], kw["preact"],
+                                    kw["threshold"], kw["sigma_px"])
+        fwd.append({"shape": list(raw.shape), "coords_err": err_c,
+                    "reg_err": err_r})
+        if call["gc"] is not None:
+            got = fused_dsnt_head_bwd(raw, t, call["gc"], call["gr"], **kw)
+            exp = fused_dsnt_head_bwd_reference(raw, t, call["gc"], call["gr"],
+                                                **kw)
+            torch.cuda.synchronize()
+            assert_dh_close(got, exp)
+            bwd.append({"shape": list(raw.shape),
+                        "max_abs_err": (got - exp).abs().max().item()})
+    if not fwd or not bwd or not shifts_seen:
+        raise AssertionError(f"dp: a rank recorded {len(fwd)} head forward, "
+                             f"{len(bwd)} backward and {len(shifts_seen)} "
+                             "row_shift calls")
+    return {"dsnt_head_fwd": fwd, "dsnt_head_bwd": bwd,
+            "row_shift": assert_row_shift_bitwise("dp", list(shifts_seen.values())),
+            "max_abs_err": {
+                "dsnt_head_fwd": max(max(c["coords_err"], c["reg_err"]) for c in fwd),
+                "dsnt_head_bwd": max(c["max_abs_err"] for c in bwd),
+                "row_shift": 0.0}}
+
+
+def dp_rank_main(work: str):
+    """One rank of the dp phase (``chip_smoke.py --dp-rank <dir>``, under
+    the launcher's variables): both ranks on cuda:0 over gloo."""
+    from dsnt_pose2d_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(DP_RANK_DEVICE)
+    pmesh.initialize_distributed(dev, backend="gloo")
+    mesh = pmesh.make_mesh(device=dev)
+    assert mesh.world_size == DP_RANKS and torch.distributed.get_backend() == "gloo"
+    try:
+        for kind in ("bf16", "fp32"):
+            sds = {w: torch.load(Path(work) / f"{kind}_{w}.pt", weights_only=True)
+                   for w in ("weights", "eval_weights")
+                   if (Path(work) / f"{kind}_{w}.pt").exists()}
+            out = dp_drive(kind, dp_config(kind), sds["weights"], dev, mesh,
+                           eval_state_dict=sds.get("eval_weights"))
+            torch.save(out, Path(work) / f"{kind}_rank{mesh.rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_cli_main(argv):
+    """``cli.train`` with cuDNN's deterministic algorithms
+    (``chip_smoke.py --dp-cli <train flags>``)."""
+    from dsnt_pose2d_tpu_torch.cli import train as train_cli
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    sys.exit(train_cli.main(argv))
+
+
+def dp_launch(argv, env):
+    """Start ``argv``; returns the Popen (stdout and stderr merged)."""
+    return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def dp_wait(procs, timeout) -> list:
+    """Wait for every process; kill what is left; raise on a failure."""
+    t0, outs = time.perf_counter(), []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        if p.returncode:
+            raise AssertionError(f"{p.args[:4]} exited {p.returncode}:\n"
+                                 + "\n".join(out.splitlines()[-40:]))
+    return outs
+
+
+def _plain_env() -> dict:
+    """This process's environment without a launcher's variables."""
+    drop = {"WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+            "TORCHELASTIC_RUN_ID", "LOCAL_WORLD_SIZE", "GROUP_RANK"}
+    return {k: v for k, v in os.environ.items() if k not in drop}
+
+
+def dp_nccl_world_one(tmp: Path) -> dict:
+    """``cli.train`` on the flagship under ``torchrun --nproc_per_node=1``
+    (NCCL, world size 1) and the same run without a launcher, both with
+    cuDNN's deterministic algorithms, at once: the losses must be bitwise
+    equal."""
+    script = str(ROOT / "chip_smoke.py")
+    runs = {"plain": [sys.executable, script, "--dp-cli"],
+            "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node=1", script, "--dp-cli"]}
+    t0 = time.perf_counter()
+    procs = [dp_launch(argv + DP_CLI + ["--out-dir", str(tmp),
+                                        "--experiment-id", name],
+                       _plain_env())
+             for name, argv in runs.items()]
+    outs = dict(zip(runs, dp_wait(procs, DP_TIMEOUT_S)))
+    wall = time.perf_counter() - t0
+    records = {}
+    for name in runs:
+        with open(tmp / name / "metrics.jsonl") as f:
+            records[name] = [json.loads(x) for x in f]
+    keys = ("loss", "train_loss", "val_loss", "val_pckh")
+    seen = {name: [{k: r[k] for k in keys if k in r} for r in recs]
+            for name, recs in records.items()}
+    if seen["plain"] != seen["torchrun"] or not seen["plain"]:
+        raise AssertionError(f"NCCL world-size-1 run differs: {seen}")
+    line = DP_NCCL_LINE
+    if line not in outs["torchrun"].splitlines() or "distributed:" in outs["plain"]:
+        raise AssertionError("the torchrun run did not report its NCCL group:\n"
+                             + outs["torchrun"][-3000:])
+    return {"wall_s": wall, "records": len(seen["plain"]),
+            "losses": [r["loss"] for r in seen["plain"] if "loss" in r],
+            "val_pckh": [r["val_pckh"] for r in seen["plain"] if "val_pckh" in r],
+            "group": line}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_readings(kind, run, ref) -> dict:
+    """A run's readings against the one-process reference, each a list over
+    the steps (fp32: one step): the loss's and the grad norm's relative
+    error; in fp32 also the running statistics' worst error of their
+    tensor's largest value, the gradients' worst error of the model's
+    largest gradient, and the share of updated parameters further than 5%
+    of a full RMSProp step (10 lr) from the reference's.  DP_ZERO_GRAD's
+    leaves are left out."""
+    out = {k: [_rel(m[k], r[k]) for m, r in zip(run["metrics"], ref["metrics"])]
+           for k in ("loss", "grad_norm")}
+    out = {"loss_rel": out["loss"], "grad_norm_rel": out["grad_norm"]}
+    if kind == "bf16":
+        return out
+    full = 10 * dp_config("fp32").optim.lr
+    stats_err = param_err = grad_err = 0.0
+    off = total = 0
+    gmax = max(g.abs().max().item() for k, g in ref["grads"].items()
+               if not DP_ZERO_GRAD.search(k))
+    for k, v in ref["state"].items():
+        scale = max(v.abs().max().item(), 1e-30)
+        diff = (run["state"][k] - v).abs()
+        if k not in ref["grads"]:
+            stats_err = max(stats_err, diff.max().item() / scale)
+        elif not DP_ZERO_GRAD.search(k):
+            grad_err = max(grad_err, (run["grads"][k] - ref["grads"][k]).abs()
+                           .max().item() / gmax)
+            param_err = max(param_err, diff.max().item() / scale)
+            off += int((diff > 0.05 * full).sum())
+            total += diff.numel()
+    return {**out, "running_stats_err_of_max": [stats_err],
+            "grads_err_of_model_max": [grad_err],
+            "params_share_off_5pct_step": [off / total],
+            "params_worst_err_of_max": [param_err]}
+
+
+def dp_hold(kind, ranks, witnesses) -> dict:
+    """Each of DP_TOL[kind]'s readings of the ranks, at every step, against
+    the larger of its floor and DP_WITNESS_FACTOR times the worst witness's
+    reading; raises at the first one above.  Returns the readings and
+    limits."""
+    held = {}
+    for key, floor in DP_TOL[kind].items():
+        worst = [max(w[key][s] for w in witnesses.values())
+                 for s in range(len(ranks[key]))]
+        limit = [max(floor, DP_WITNESS_FACTOR * w) for w in worst]
+        held[key] = {"ranks": ranks[key], "limit": limit,
+                     "witnesses": {n: w[key] for n, w in witnesses.items()}}
+        if any(r > lim for r, lim in zip(ranks[key], limit)):
+            raise AssertionError(f"dp {kind} {key} against one process: "
+                                 f"{held[key]}")
+    return held
+
+
+def phase_dp(dev, card):
+    """Data parallelism on the card: the NCCL world-size-1 ``cli.train``
+    against the plain run; then 2 ranks on the one card over gloo (bf16 hg8
+    at full width, 3 steps; fp32 hg2 at the flagship's widths with TF32
+    off, 1 step, after an eval pass and ``predict`` over DP_VAL_ROWS rows),
+    each rank's kernel calls against their plain versions, and each rank
+    step against one process's step on the same global batch from the same
+    state, held relative to the witnesses of DP_WITNESSES."""
+    import socket
+    import tempfile
+
+    from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dsnt_dp_") as tmp:
+        tmp = Path(tmp)
+        nccl = dp_nccl_world_one(tmp)
+        emit("dp_nccl_world_size_1", card=card, **nccl)
+
+        # The tempered weights first, in this process; then it frees the card.
+        batch = synthetic_batch(dev)
+        weights = {}
+        for kind in ("bf16", "fp32"):
+            cfg = dp_config(kind)
+            model = build_pose_model(cfg.model, device=dev, seed=0)
+            with torch.no_grad():
+                images = preprocess_batch(
+                    batch["canvases"], batch["coords_px"], batch["mask"],
+                    batch["head_length"], batch["canvas_from_orig"], cfg.data,
+                    model.input_size, canvas_margin=batch["canvas_margin"])["images"]
+            weights[kind] = {}
+            tempers = (("eval_weights", False),) if kind == "fp32" else ()
+            for name, train in (*tempers, ("weights", True)):
+                temper_scores(model.net, images, train=train)
+                weights[kind][name] = {k: v.detach().cpu().clone()
+                                       for k, v in model.net.state_dict().items()}
+                torch.save(weights[kind][name], tmp / f"{kind}_{name}.pt")
+            del model, images
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [dp_launch(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(tmp)],
+            {**_plain_env(), "WORLD_SIZE": str(DP_RANKS), "RANK": str(r),
+             "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port)}) for r in range(DP_RANKS)]
+        dp_wait(procs, DP_TIMEOUT_S)
+        ranks_wall = time.perf_counter() - t0
+        ranks = {kind: [torch.load(tmp / f"{kind}_rank{r}.pt", weights_only=False)
+                        for r in range(DP_RANKS)] for kind in ("bf16", "fp32")}
+
+    # One process on the global batch, each step from the ranks' state
+    # before it; then the witnesses from the same states.
+    one, witnesses = {}, {}
+    t_one = time.perf_counter()
+    for kind in ("bf16", "fp32"):
+        cfg, sds = dp_config(kind), weights[kind]
+        starts = [None, *ranks[kind][0].pop("snapshots")]
+        one[kind] = dp_drive(kind, cfg, sds["weights"], dev,
+                             eval_state_dict=sds.get("eval_weights"), starts=starts)
+        witnesses[kind] = {
+            name: dp_readings(kind, dp_drive(kind, cfg, sds["weights"], dev,
+                                             order=order, starts=starts), one[kind])
+            for name, order in DP_WITNESSES.items()}
+    one_s = time.perf_counter() - t_one
+
+    report, held, errs = {}, {}, {}
+    for kind in ("bf16", "fp32"):
+        a, b = ranks[kind]
+        ref = one[kind]
+        if a["digests"] != b["digests"]:
+            raise AssertionError(f"dp {kind}: the ranks' states differ")
+        for r in (a, b):
+            want = {"dsnt_head_fwd": len(r["metrics"]),
+                    "dsnt_head_bwd": len(r["metrics"]),
+                    "row_shift": 2 * len(r["metrics"])}
+            if {k: r["launches"].get(k, 0) for k in want} != want:
+                raise AssertionError(f"dp {kind} rank launches {r['launches']}")
+            for c, n in zip(r["collectives"], r["grad_buckets"]):
+                if c != {"all_reduce": 2 * r["bns"] + 2 + n, "broadcast": 0}:
+                    raise AssertionError(f"dp {kind} collectives {c}")
+            for k, err in r["kernels_vs_plain"]["max_abs_err"].items():
+                errs[k] = max(errs.get(k, 0.0), err)
+        readings = dp_readings(kind, a, ref)
+        report[kind] = {
+            **readings,
+            "losses_one_process": [m["loss"] for m in ref["metrics"]],
+            "losses_ranks": [m["loss"] for m in a["metrics"]],
+            "ranks_bitwise_equal_after_each_step": True,
+            "kernels_vs_plain": a["kernels_vs_plain"],
+            "bns": a["bns"], "collectives_per_step": a["collectives"][-1],
+            "grad_buckets": a["grad_buckets"][-1],
+            "rank_step_ms": {r["rank"]: r["step_ms"] for r in (a, b)},
+            "one_process_step_ms": ref["step_ms"],
+            "grad_all_reduce_ms": {r["rank"]: r["grad_all_reduce_ms"] for r in (a, b)},
+            "peak_mem_bytes": {"one_process": ref["peak_mem_bytes"],
+                               **{f"rank{r['rank']}": r["peak_mem_bytes"] for r in (a, b)}}}
+        med = statistics.median(a["step_ms"][1:] or a["step_ms"])
+        report[kind].update(rank_step_ms_median=med,
+                            rank_img_per_s=BATCH // DP_RANKS / med * 1e3,
+                            global_img_per_s=BATCH / med * 1e3)
+        try:
+            held[kind] = dp_hold(kind, readings, witnesses[kind])
+        except AssertionError:
+            report[kind]["witnesses"] = witnesses[kind]
+            emit("dp", card=card, failed=kind, tolerance=DP_TOL, **report)
+            raise
+    a, ref = ranks["fp32"][0], one["fp32"]
+    fp = report["fp32"]
+    pred_err = float(np.abs(a["pred_orig"] - ref["pred_orig"]).max())
+    fp.update(eval_loss_rel=_rel(a["eval"]["loss"], ref["eval"]["loss"]),
+              pred_orig_max_err_px=pred_err, val_rows=DP_VAL_ROWS,
+              pckh_total=sum(ref["eval"]["total"]))
+    emit("dp", card=card, ranks=DP_RANKS, backend="gloo (both ranks on cuda:0)",
+         note="gloo stages CUDA tensors through the host: these times are no "
+              "measure of NCCL across cards",
+         ranks_wall_s=ranks_wall, one_process_and_witnesses_wall_s=one_s,
+         wall_s=time.perf_counter() - t_phase, tolerance=DP_TOL,
+         fp32_model=DP_FP32_MODEL, held=held, kernels_vs_plain_max_err=errs,
+         **report)
+
+    for r in ranks["fp32"]:
+        if r["eval"]["correct"] != ref["eval"]["correct"] or \
+                r["eval"]["total"] != ref["eval"]["total"]:
+            raise AssertionError(f"dp eval counts {r['eval']} != {ref['eval']}")
+        rows = r["gidx"][r["gidx"] >= 0]
+        if sorted(rows.tolist()) != list(range(DP_VAL_ROWS)):
+            raise AssertionError("dp predict does not cover each row once")
+    if not np.array_equal(a["pred_orig"], ranks["fp32"][1]["pred_orig"]) \
+            or pred_err > DP_TOL["pred_orig_px"]:
+        raise AssertionError(f"dp predict: max err {pred_err} px")
+    launches = {}
+    for kind in ranks:
+        for r in ranks[kind]:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    return {"launches": launches, "errs": errs}
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -2417,14 +3016,16 @@ def main():
     remat_launches = phase_remat(dev, card)
     for name, n in vit["remat"].items():
         remat_launches[name] += n
-    # Last: its profiler runs in a process of its own, after every phase
-    # that times or profiles.
+    # Its profiler runs in a process of its own, after every phase that
+    # times or profiles.
     phase_telemetry(dev, card)
+    # Last: its ranks and CLI runs are processes of their own.
+    dp = phase_dp(dev, card)
     paths = {"serve": serve_launches, "train": train_launches,
              "bench": bench_launches, "trainer": trainer_launches,
              "cli": cli_launches, "resnet": resnet["launches"],
              "heads": heads_launches, "vit": vit["launches"],
-             "remat": remat_launches}
+             "remat": remat_launches, "dp": dp["launches"]}
 
     def launches(name):
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -2446,7 +3047,7 @@ def main():
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:184",
          **launches("dsnt_head_fwd"),
          "max_abs_err": max(head["max_abs_err"], resnet["fwd"]["max_abs_err"],
-                            vit["fwd"]["max_abs_err"]),
+                            vit["fwd"]["max_abs_err"], dp["errs"]["dsnt_head_fwd"]),
          **{k: head[k] for k in keys},
          "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"]),
          "at_56x56": at_56(resnet["fwd"]), "at_56x56_vit": at_56(vit["fwd"])},
@@ -2455,7 +3056,7 @@ def main():
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
          **launches("dsnt_head_bwd"),
          "max_abs_err": max(bwd["max_abs_err"], resnet["bwd"]["max_abs_err"],
-                            vit["bwd"]["max_abs_err"]),
+                            vit["bwd"]["max_abs_err"], dp["errs"]["dsnt_head_bwd"]),
          **{k: bwd[k] for k in keys}, "layout": bwd["layout"],
          "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"]),
          "at_56x56": at_56(resnet["bwd"]), "at_56x56_vit": at_56(vit["bwd"])},
@@ -2495,4 +3096,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--dp-cli"]:
+        dp_cli_main(sys.argv[2:])
+    else:
+        main()

@@ -15,8 +15,10 @@ in train and eval mode, dsnt head, PCKh, optimizer and schedule in
 loop with auto-pack and ``EvalDriver`` of :mod:`.train.loop`, checkpoints
 in :mod:`.train.checkpoint`, metric records in :mod:`.train.metrics`), the
 host data path (:mod:`.data`: MPII reader, packer, prepare, loader,
-resident splits; :mod:`.native`: the JPEG canvas decoder) and the benches
-(:mod:`.bench`).
+resident splits; :mod:`.native`: the JPEG canvas decoder), the benches
+(:mod:`.bench`) and data parallelism over processes (:mod:`.parallel`:
+one process per card under ``torchrun``, global-batch BN, loss and
+gradients, host-split loaders and sharded resident splits).
 """
 
 from .device import resolve_device

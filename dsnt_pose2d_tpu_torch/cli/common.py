@@ -3,24 +3,59 @@ argparse surface of the reference's flags, the config it builds, the
 datasets and the loaders.
 
 The JAX package's ``--platform`` and XLA compilation cache have no
-counterpart here; ``--device {cuda,cpu}`` (default ``cuda``) takes the
-place of ``--platform``.  Without a card and without ``--device cpu`` the
-entry points raise (:func:`..device.resolve_device`).
+counterpart here; ``--device {cuda,cuda:N,cpu}`` (default ``cuda``) takes
+the place of ``--platform``.  Without a card and without ``--device cpu``
+the entry points raise (:func:`..device.resolve_device`).
+
+Several processes (``torchrun --nproc_per_node=N -m
+dsnt_pose2d_tpu_torch.cli.train ...``): each CLI joins the launcher's
+process group first (:func:`start_distributed`); a bare ``cuda`` is then
+``cuda:{LOCAL_RANK}``, and the loaders take this rank's host split.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import re
 
 from ..data import ArrayDataset, MPIIDataset, ShardedLoader, make_synthetic_mpii
 from ..device import DEFAULT_DEVICE
+from ..parallel.mesh import (broadcast_, collective_device,
+                             initialize_distributed, make_mesh)
 from ..utils.config import Config, DataConfig, ModelConfig, OptimConfig, TrainConfig
 
 
+def _device_flag(value: str) -> str:
+    if not re.fullmatch(r"cuda(:\d+)?|cpu", value):
+        raise argparse.ArgumentTypeError(
+            f"--device takes cuda, cuda:N or cpu, not {value!r}")
+    return value
+
+
 def add_device_arg(p: argparse.ArgumentParser):
-    p.add_argument("--device", default=DEFAULT_DEVICE, choices=["cuda", "cpu"],
-                   help="run on the card (default) or, with 'cpu', on the host")
+    p.add_argument("--device", default=DEFAULT_DEVICE, type=_device_flag,
+                   help="cuda (default: this rank's card, cuda:LOCAL_RANK "
+                        "under a launcher), cuda:N, or cpu (the host)")
+
+
+@contextlib.contextmanager
+def start_distributed(device: str, model_parallel: int = 1):
+    """The run's :class:`..parallel.mesh.Mesh`: the launcher's process group
+    joined first (a no-op without a launcher; fatal if the launcher's
+    bootstrap fails), then the mesh over it.  A group this block started
+    is destroyed when it ends."""
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    initialize_distributed(device)
+    started = started and dist.is_initialized()
+    try:
+        yield make_mesh(model_parallel, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 def add_model_args(p: argparse.ArgumentParser):
@@ -253,11 +288,17 @@ def merge_cli_overrides(cfg: Config, args, parser: argparse.ArgumentParser,
 
 
 def experiment_dir(cfg: Config) -> str:
+    """``out_dir/experiment_id``; without an id, a time stamp of rank 0's
+    clock, so that every rank names the same directory."""
     exp = cfg.train.experiment_id
     if not exp:
         import time
 
-        exp = time.strftime("%Y%m%d-%H%M%S")
+        import torch
+
+        stamp = torch.tensor([int(time.time())], device=collective_device())
+        exp = time.strftime("%Y%m%d-%H%M%S",
+                            time.localtime(broadcast_(stamp).item()))
     return os.path.join(cfg.train.out_dir, exp)
 
 
@@ -314,14 +355,17 @@ def dataset_split_method(ds) -> str:
     return method or ""
 
 
-def make_loaders(cfg: Config, train_ds, val_ds):
+def make_loaders(cfg: Config, train_ds, val_ds, mesh=None):
     """The train loader (shuffled, seeded) and the val loader (in order,
-    every row once: the last batch padded with masked rows)."""
+    every row once: the stream padded with masked rows), each this rank's
+    host split of ``mesh`` (one host without one); ``cfg.train.batch_size``
+    is the global batch."""
+    nh, hid = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
     workers = getattr(cfg.data, "workers", 1)
     train_loader = ShardedLoader(
         train_ds, cfg.train.batch_size, shuffle=True, seed=cfg.train.seed,
-        workers=workers)
+        num_hosts=nh, host_id=hid, workers=workers)
     val_loader = ShardedLoader(
-        val_ds, cfg.train.batch_size, shuffle=False, drop_last=False,
-        workers=workers)
+        val_ds, cfg.train.batch_size, shuffle=False, num_hosts=nh,
+        host_id=hid, drop_last=False, workers=workers)
     return train_loader, val_loader

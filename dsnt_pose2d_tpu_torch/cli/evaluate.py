@@ -4,18 +4,22 @@ split's provenance and the val loss.
 
     python -m dsnt_pose2d_tpu_torch.cli.evaluate --model-dir out/<exp> \
         [--flip-eval] [--eval-scales 0.9,1.0,1.1] [--device cpu]
+
+On N cards (each rank scores its share of the split; rank 0 prints):
+
+    torchrun --nproc_per_node=N -m dsnt_pose2d_tpu_torch.cli.evaluate ...
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..device import resolve_device
 from ..models.factory import build_pose_model
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import EvalDriver
 from .common import (add_data_args, add_device_arg, dataset_split_method,
-                     make_datasets, make_loaders, merge_cli_overrides)
+                     make_datasets, make_loaders, merge_cli_overrides,
+                     start_distributed)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +43,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    with start_distributed(args.device) as mesh:
+        return _evaluate(args, p, argv, mesh)
+
+
+def _evaluate(args, p, argv, mesh):
+    device = mesh.device
     ckpt = CheckpointManager(args.model_dir)
     cfg = ckpt.load_config()
     if cfg is None:
@@ -48,17 +57,19 @@ def main(argv=None):
 
     model = build_pose_model(cfg.model, device=device)
     _, val_ds = make_datasets(cfg)
-    _, val_loader = make_loaders(cfg, val_ds, val_ds)
+    _, val_loader = make_loaders(cfg, val_ds, val_ds, mesh)
 
-    driver = EvalDriver(model=model, cfg=cfg, loader=val_loader, device=device)
+    driver = EvalDriver(model=model, cfg=cfg, loader=val_loader, device=device,
+                        mesh=mesh)
     epoch = args.epoch if args.epoch is not None else ckpt.best_epoch()
     state, _ = ckpt.restore(driver.init_state(), epoch=epoch)
     if state is None:
         raise SystemExit("no checkpoint found")
-    result = driver.evaluate(state)
-    result["evaluator"].provenance = dataset_split_method(val_ds)
-    print(result["evaluator"].table())
-    print(f"val loss {result['loss']:.5f}")
+    result = driver.evaluate(state)   # the global counts, on every rank
+    if mesh.rank == 0:
+        result["evaluator"].provenance = dataset_split_method(val_ds)
+        print(result["evaluator"].table())
+        print(f"val loss {result['loss']:.5f}")
     return 0
 
 

@@ -6,18 +6,22 @@ shape (N, 16, 2), in an HDF5 file (``h5py``) or a ``.mat`` file
 
     python -m dsnt_pose2d_tpu_torch.cli.infer --model-dir out/<exp> \
         --subset val --preds-file preds.h5 [--device cpu]
+
+On N cards (each rank predicts its share; rank 0 writes the file):
+
+    torchrun --nproc_per_node=N -m dsnt_pose2d_tpu_torch.cli.infer ...
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..device import resolve_device
 from ..models.factory import build_pose_model
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import EvalDriver
 from .common import (add_data_args, add_device_arg, dataset_split_method,
-                     make_datasets, make_loaders, merge_cli_overrides)
+                     make_datasets, make_loaders, merge_cli_overrides,
+                     start_distributed)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,7 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    with start_distributed(args.device) as mesh:
+        return _infer(args, p, argv, mesh)
+
+
+def _infer(args, p, argv, mesh):
+    device = mesh.device
     ckpt = CheckpointManager(args.model_dir)
     cfg = ckpt.load_config()
     if cfg is None:
@@ -60,15 +69,18 @@ def main(argv=None):
     else:
         train_ds, val_ds = make_datasets(cfg)
         ds = val_ds if args.subset != "train" else train_ds
-    _, loader = make_loaders(cfg, ds, ds)
+    _, loader = make_loaders(cfg, ds, ds, mesh)
 
-    driver = EvalDriver(model=model, cfg=cfg, loader=loader, device=device)
+    driver = EvalDriver(model=model, cfg=cfg, loader=loader, device=device,
+                        mesh=mesh)
     epoch = args.epoch if args.epoch is not None else ckpt.best_epoch()
     state, _ = ckpt.restore(driver.init_state(), epoch=epoch)
     if state is None:
         raise SystemExit("no checkpoint found")
 
-    preds = driver.predict(state)  # dataset order, every row
+    preds = driver.predict(state)  # dataset order, every row, every rank
+    if mesh.rank != 0:
+        return 0
 
     # Stamp the split's provenance: a preds file from a hash-holdout val
     # split must not pass for a Tompson-split one.

@@ -6,15 +6,20 @@ Example (the flagship, BASELINE config #3), on the card:
         --output-strat dsnt --reg js --reg-coeff 1.0 --hm-sigma 1.0 \
         --batch-size 32 --epochs 120
 
+On N cards of one host, data parallel (``--batch-size`` is the global
+batch; each rank trains ``1/N`` of it):
+
+    torchrun --nproc_per_node=N -m dsnt_pose2d_tpu_torch.cli.train ...
+
 ``--config configs/vit_s16_dsnt_2x.json`` runs a config file (the flags
 given beside it override its fields).  ``--device cpu`` runs it on the
-host.  ``--dashboard-port`` serves the
+host (over gloo under a launcher).  ``--dashboard-port`` serves the
 live dashboard (:mod:`..train.dashboard`) while the run lasts,
 ``--profile-dir`` writes a ``torch.profiler`` trace of the second epoch
-(:mod:`..train.profiling`), and ``--debug-nans`` stops at the first NaN
-(:func:`..train.loop.set_debug_nans`, process-wide as JAX's
-``jax_debug_nans``).  ``--model-parallel`` > 1 is not ported yet and
-raises ``NotImplementedError``.
+(:mod:`..train.profiling`), both from rank 0, and ``--debug-nans`` stops
+at the first NaN (:func:`..train.loop.set_debug_nans`, process-wide as
+JAX's ``jax_debug_nans``).  ``--model-parallel`` > 1 is not ported yet
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import argparse
 import contextlib
 import dataclasses
 
-from ..device import resolve_device
+import torch.distributed as dist
+
 from ..models.factory import build_pose_model
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import Trainer, set_debug_nans
@@ -40,6 +46,7 @@ from .common import (
     experiment_dir,
     make_datasets,
     make_loaders,
+    start_distributed,
 )
 
 
@@ -73,15 +80,21 @@ def refuse_unported(args):
     ROADMAP item that brings it."""
     if args.model_parallel > 1:
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} is not ported yet "
-            "(ROADMAP Queue 1, Data parallel)")
+            f"--model-parallel {args.model_parallel}: tensor parallelism "
+            "(parallel/tp.py) is not ported yet (ROADMAP Queue 1, Data parallel: "
+            "item 8, Tensor parallel)")
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(args.device)
+    with start_distributed(args.device, args.model_parallel) as mesh:
+        return _train(args, parser, argv, mesh)
+
+
+def _train(args, parser, argv, mesh):
+    device = mesh.device
     if args.debug_nans:
         set_debug_nans(True)
     if args.config:
@@ -97,13 +110,18 @@ def main(argv=None):
     out_dir = experiment_dir(cfg)
 
     train_ds, val_ds = make_datasets(cfg)
-    train_loader, val_loader = make_loaders(cfg, train_ds, val_ds)
+    train_loader, val_loader = make_loaders(cfg, train_ds, val_ds, mesh)
+    if mesh.group is not None and mesh.rank == 0:
+        print(f"distributed: backend={dist.get_backend()} "
+              f"world_size={mesh.world_size} device={device}", flush=True)
 
     ckpt = CheckpointManager(out_dir, cfg, max_to_keep=cfg.train.keep_checkpoints)
-    writer = MetricWriter(out_dir, echo=True, tensorboard=args.tensorboard)
+    # Rank 0 writes the metric records (the JAX package's process 0).
+    writer = (MetricWriter(out_dir, echo=True, tensorboard=args.tensorboard)
+              if mesh.rank == 0 else None)
     trainer = Trainer(model=model, cfg=cfg, train_loader=train_loader,
                       val_loader=val_loader, checkpointer=ckpt,
-                      metric_writer=writer, device=device)
+                      metric_writer=writer, device=device, mesh=mesh)
 
     state = None
     start_epoch = 0
@@ -122,15 +140,19 @@ def main(argv=None):
             # Seed the best-model tracker, so that a worse resumed model
             # does not take the recorded best's slot.
             best_pckh = float(ckpt.best_metrics().get("val_pckh", -1.0))
-            print(f"resumed from epoch {meta['epoch']}"
-                  + (f" step {start_step}" if start_step else ""))
+            if mesh.rank == 0:
+                print(f"resumed from epoch {meta['epoch']}"
+                      + (f" step {start_step}" if start_step else ""))
 
     with contextlib.ExitStack() as telemetry:
-        trainer.hooks = start_telemetry(args, out_dir, telemetry)
+        if mesh.rank == 0:
+            trainer.hooks = start_telemetry(args, out_dir, telemetry)
         state, best = trainer.run(state, start_epoch=start_epoch,
                                   best_pckh=best_pckh, start_step=start_step)
-    print(f"done; best val PCKh@0.5 = {100 * best:.2f}")
-    writer.close()
+    if mesh.rank == 0:
+        print(f"done; best val PCKh@0.5 = {100 * best:.2f}")
+    if writer is not None:
+        writer.close()
     ckpt.close()
     return 0
 
@@ -139,8 +161,8 @@ def start_telemetry(args, out_dir: str, stack: contextlib.ExitStack) -> tuple:
     """Start the dashboard server and make the profile hook that the flags
     ask for, each stopped when ``stack`` closes (the server when the run
     ends; a profile still running, unwritten); returns the Trainer's
-    hooks.  One process trains, so it serves the dashboard (the JAX
-    package's process 0)."""
+    hooks.  Rank 0 serves the dashboard and profiles (the JAX package's
+    process 0)."""
     hooks = ()
     if args.dashboard_port:
         from ..train.dashboard import serve

@@ -1,7 +1,10 @@
-"""Deterministic, prefetching batch loader and the host-to-device copy
-(port of ``dsnt_pose2d_tpu/data/loader.py``, one host; the multi-host
-split comes with data parallelism).
+"""Per-host sharded, deterministic, prefetching batch loader and the
+host-to-device copy (port of ``dsnt_pose2d_tpu/data/loader.py``).
 
+- **per-host input sharding**: over ``num_hosts`` processes (one per card
+  in the port) each enumerates only its stride of the (seeded, per-epoch
+  permuted) index stream and loads its ``1/num_hosts`` share of every
+  global batch, as the JAX package's loader does;
 - **determinism / resume**: the permutation is a pure function of
   ``(seed, epoch)`` (numpy ``default_rng``, as the JAX package), and an
   epoch can start at any step, so a resumed run replays the same order;
@@ -76,56 +79,103 @@ def prefetch_pairs(batch_iter, device, depth: int = 2):
 
 
 class ShardedLoader:
-    """Batches of one epoch, in the order of a seeded permutation.
+    """This host's batches of one epoch, in the order of a seeded permutation.
 
-    With ``drop_last`` the tail that does not fill a batch is dropped (it
-    rotates with the per-epoch shuffle); without it the last batch is padded
-    to the full size by repeating its last sample, with the pad rows' mask
-    zeroed, so every sample is seen once and masked metrics stay exact.
+    ``global_batch_size`` rows make a step over all ``num_hosts`` hosts;
+    host ``host_id`` loads ``local_batch_size = global_batch_size //
+    num_hosts`` of them (``batch_size`` is that local size).  With
+    ``drop_last`` the tail that does not fill a batch is dropped (it rotates
+    with the per-epoch shuffle); without it the stream is padded so that
+    every sample is seen once, the pad rows' mask zeroed, so masked metrics
+    stay exact.
     """
 
-    def __init__(self, dataset, batch_size: int, *, shuffle: bool,
-                 seed: int = 0, drop_last: bool = True, prefetch: int = 2,
-                 workers: int = 1):
+    def __init__(self, dataset, global_batch_size: int, *, shuffle: bool,
+                 seed: int = 0, num_hosts: int = 1, host_id: int = 0,
+                 drop_last: bool = True, prefetch: int = 2, workers: int = 1):
+        if global_batch_size % num_hosts:
+            raise ValueError("global batch size must divide across hosts")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.global_batch_size = global_batch_size
+        self.local_batch_size = global_batch_size // num_hosts
         self.shuffle = shuffle
         self.seed = seed
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.workers = max(1, workers)
 
     @property
-    def steps_per_epoch(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+    def batch_size(self) -> int:
+        """The rows this host loads a step (``local_batch_size``)."""
+        return self.local_batch_size
 
-    def _epoch_indices(self, epoch: int) -> np.ndarray:
+    @property
+    def steps_per_epoch(self) -> int:
+        if self.drop_last:
+            return (len(self.dataset) // self.num_hosts) // self.local_batch_size
+        per_host = -(-len(self.dataset) // self.num_hosts)
+        return -(-per_host // self.local_batch_size)
+
+    def _epoch_indices(self, epoch: int):
+        return self._epoch_indices_for(epoch, self.host_id)
+
+    def _epoch_indices_for(self, epoch: int, host_id: int):
+        """(dataset indices, valid mask) of one host's epoch stream.
+
+        Hosts enumerate streams of EQUAL length (unequal counts would run
+        different numbers of collective steps and hang).  With ``drop_last``
+        the permutation is cut to a common per-host length, and host ``h``
+        takes every ``num_hosts``-th row from ``h``.  Without it the stream
+        is padded UP by repeating the last index so that every sample is
+        seen; the pad entries are marked invalid.
+        """
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng((self.seed, epoch)).permutation(n)
-        return np.arange(n)
+            perm = np.random.default_rng((self.seed, epoch)).permutation(n)
+        else:
+            perm = np.arange(n)
+        if self.drop_last:
+            n_even = (n // self.num_hosts) * self.num_hosts
+            idx = perm[:n_even][host_id::self.num_hosts]
+            return idx, np.ones(len(idx), bool)
+        n_pad = -(-n // self.num_hosts) * self.num_hosts
+        if n_pad > n:
+            perm = np.concatenate([perm, np.repeat(perm[-1:], n_pad - n)])
+        pos = np.arange(host_id, n_pad, self.num_hosts)
+        return perm[pos], pos < n
 
     def global_index_batches(self, epoch: int = 0) -> list[np.ndarray]:
-        """Dataset indices of each batch of :meth:`epoch`; -1 marks pad rows.
+        """Dataset indices of each GLOBAL batch of :meth:`epoch`; -1 marks
+        pad rows.
 
-        ``EvalDriver.predict`` scatters each batch's outputs back into
-        dataset order through this map.
+        The row layout is the global batch's: host 0's local rows, then
+        host 1's, and so on (:func:`..parallel.mesh.check_row_order`), so
+        that ``EvalDriver.predict`` can scatter each gathered batch back
+        into dataset order through this map.
         """
-        idx = self._epoch_indices(epoch)
-        bs = self.batch_size
+        streams = [self._epoch_indices_for(epoch, h)
+                   for h in range(self.num_hosts)]
+        bs = self.local_batch_size
         out = []
         for step in range(self.steps_per_epoch):
-            chunk = idx[step * bs:(step + 1) * bs]
-            pad = bs - len(chunk)
-            out.append(np.concatenate([chunk, np.full(pad, -1, chunk.dtype)])
-                       if pad else chunk.copy())
+            rows = []
+            for idx, valid in streams:
+                chunk = idx[step * bs:(step + 1) * bs]
+                g = np.where(valid[step * bs:(step + 1) * bs], chunk, -1)
+                pad = bs - len(chunk)
+                if pad:
+                    g = np.concatenate([g, np.full(pad, -1, g.dtype)])
+                rows.append(g)
+            out.append(np.concatenate(rows))
         return out
 
     def epoch(self, epoch: int, start_step: int = 0):
-        """Yield collated numpy batches for one epoch, from ``start_step``."""
-        idx = self._epoch_indices(epoch)
-        bs = self.batch_size
+        """Yield this host's collated numpy batches for one epoch, from
+        ``start_step``."""
+        idx, valid = self._epoch_indices(epoch)
+        bs = self.local_batch_size
         starts = range(start_step * bs, len(idx) - (bs - 1 if self.drop_last else 0), bs)
 
         pool = None
@@ -147,9 +197,11 @@ class ShardedLoader:
                     pad = bs - len(chunk)
                     samples = fetch(chunk)
                     batch = _collate(samples + [samples[-1]] * pad)
-                    if pad and "mask" in batch:
+                    invalid = np.concatenate(
+                        [~valid[s:s + bs], np.ones(pad, bool)])
+                    if invalid.any() and "mask" in batch:
                         batch["mask"] = batch["mask"].copy()
-                        batch["mask"][bs - pad:] = 0.0
+                        batch["mask"][invalid] = 0.0
                     q.put(batch)
                 q.put(None)
             except BaseException as e:  # handed to the consumer

@@ -1,17 +1,20 @@
-"""Device-resident train split: the packed arrays staged on the card once,
-each batch gathered there from a vector of row indices
-(port of ``dsnt_pose2d_tpu/data/resident.py``, one device).
+"""Device-resident splits: the packed arrays staged on the card once, each
+batch gathered there from a vector of row indices
+(port of ``dsnt_pose2d_tpu/data/resident.py``).
 
 The streaming path copies every batch from the host (a 32-sample batch of
 384-px uint8 canvases is 14 MB); the resident path copies the split once
-and then only a ``(B,)`` index vector per step.  The per-epoch order is a
-pure function of ``(seed, epoch, shard)``, as in the JAX package; with one
-device the strided shard layout is the identity and there is one shard, so
-:meth:`ResidentTrainData.epoch` and :meth:`~ResidentTrainData.epoch_groups`
-give the JAX package's index arrays on a 1-device mesh.
+and then only a ``(B,)`` index vector per step.
+
+Over ``num_shards`` data-parallel ranks the split is laid out as the JAX
+package lays it over a ``data`` mesh (``_stage_strided``): shard ``s``
+holds dataset rows ``{s, s + d, s + 2d, ...}``, padded to a common length
+by repeating its last valid row, and rank ``s`` stages only shard ``s``.
+The per-epoch order of each shard is a pure function of ``(seed, epoch,
+shard)``, so the index arrays are the JAX package's on a mesh of that size
+(the ``(shards * B,)`` global layout, of which a rank takes block ``s``).
 :class:`ResidentEvalData` stages the val split the same way for the
-Trainer's epoch-end eval pass.  The sharded layout over several devices is
-not ported yet (ROADMAP Queue 1, data parallel).
+Trainer's epoch-end eval pass.
 """
 
 from __future__ import annotations
@@ -62,12 +65,34 @@ def resident_nbytes(dataset) -> int:
     return sum(a.nbytes for a in arrays.values()) if arrays else 0
 
 
-def resident_fits(dataset, device=DEFAULT_DEVICE, extra_nbytes: int = 0) -> bool:
-    """Whether the dataset (plus ``extra_nbytes`` already resident) fits the
-    budget of :func:`resident_budget_bytes`."""
+def resident_fits(dataset, device=DEFAULT_DEVICE, extra_nbytes: int = 0,
+                  num_shards: int = 1) -> bool:
+    """Whether one shard of the dataset (plus ``extra_nbytes`` of splits
+    already resident, over the same shards) fits the budget of
+    :func:`resident_budget_bytes`."""
     if resident_arrays(dataset) is None:
         return False
-    return resident_nbytes(dataset) + extra_nbytes <= resident_budget_bytes(device)
+    per_device = (resident_nbytes(dataset) + extra_nbytes) // max(num_shards, 1)
+    return per_device <= resident_budget_bytes(device)
+
+
+def _strided_layout(n: int, d: int):
+    """``(rows_per_shard, shard_valid)`` of the strided layout of ``n`` rows
+    over ``d`` shards (the JAX package's ``_stage_strided``)."""
+    if n < d:
+        raise ValueError(f"dataset ({n}) smaller than the shard count ({d})")
+    return -(-n // d), (n - np.arange(d) + d - 1) // d
+
+
+def _stage_shard(arrays: dict, device: torch.device, shard: int, d: int,
+                 rows_per_shard: int, valid: int) -> dict:
+    """Shard ``shard``'s rows of every array on ``device``: dataset rows
+    ``local * d + shard``, padded by repeating the shard's last valid row.
+    One host copy of each array (``np.take``'s, which the tensor owns, so
+    it is writable), then one copy to the device."""
+    rows = np.minimum(np.arange(rows_per_shard), valid - 1) * d + shard
+    return {k: torch.from_numpy(np.take(a, rows, axis=0)).to(device)
+            for k, a in arrays.items()}
 
 
 def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -79,71 +104,86 @@ def _put(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _check_shards(global_batch_size: int, num_shards: int, shard: int):
+    if global_batch_size % num_shards:
+        raise ValueError(f"global batch {global_batch_size} not divisible by "
+                         f"{num_shards} shards")
+    if not 0 <= shard < num_shards:
+        raise ValueError(f"shard {shard} of {num_shards}")
+
+
 class ResidentTrainData:
     """Epoch-index iterator + device-resident arrays for the train loop.
 
-    ``resident`` maps each array name to one tensor on the device (uint8
-    canvases stay uint8 until ``preprocess_batch``); :meth:`epoch` yields one
-    int64 ``(B,)`` index tensor per step, on the device.
+    ``resident`` maps each array name to this rank's shard (``shard`` of
+    ``num_shards``) as one tensor on the device (uint8 canvases stay uint8
+    until ``preprocess_batch``); :meth:`epoch` yields one int64 index
+    tensor of the shard's ``global_batch_size // num_shards`` local row
+    offsets per step, on the device.  ``nbytes`` is the whole split's.
     """
 
-    def __init__(self, dataset, batch_size: int, device=DEFAULT_DEVICE, *,
-                 seed: int = 0):
+    def __init__(self, dataset, global_batch_size: int, device=DEFAULT_DEVICE,
+                 *, seed: int = 0, num_shards: int = 1, shard: int = 0):
         arrays = resident_arrays(dataset)
         if arrays is None:
             raise ValueError("dataset is not array-backed; pack it first or "
                              "use the streaming loader")
+        _check_shards(global_batch_size, num_shards, shard)
         self.device = resolve_device(device)
         self.seed = seed
-        n = len(dataset)
-        self.num_shards = 1
-        self.shard_batch_size = batch_size
-        self.shard_valid = np.array([n])     # real rows of each shard
-        self.steps_per_epoch = n // batch_size
+        self.num_shards = num_shards
+        self.shard = shard
+        self.global_batch_size = global_batch_size
+        self.shard_batch_size = global_batch_size // num_shards
+        self.rows_per_shard, self.shard_valid = _strided_layout(
+            len(dataset), num_shards)
+        self.steps_per_epoch = int(self.shard_valid.min()) // self.shard_batch_size
         if self.steps_per_epoch < 1:
-            raise ValueError(f"{n} rows cannot fill a batch of {batch_size}")
-        # One host copy of each array (np.array owns it, so the tensor is
-        # writable), then one copy to the device.
-        self.resident = {k: torch.from_numpy(np.array(a)).to(self.device)
-                         for k, a in arrays.items()}
+            raise ValueError(
+                f"shards of {int(self.shard_valid.min())} rows cannot fill a "
+                f"batch of {self.shard_batch_size}")
+        self.resident = _stage_shard(arrays, self.device, shard, num_shards,
+                                     self.rows_per_shard,
+                                     int(self.shard_valid[shard]))
         self.nbytes = sum(a.nbytes for a in arrays.values())
 
     def dataset_row(self, shard: int, local: int) -> int:
         """Dataset row held at (shard, local offset) under the strided layout."""
         return int(local) * self.num_shards + int(shard)
 
-    def _shard_streams(self, epoch: int) -> np.ndarray:
-        """(num_shards, steps * batch) local row offsets for one epoch."""
+    def _shard_stream(self, epoch: int, s: int) -> np.ndarray:
+        """Shard ``s``'s ``(steps * batch,)`` local row offsets for one epoch."""
         rows = self.steps_per_epoch * self.shard_batch_size
-        out = np.empty((self.num_shards, rows), np.int64)
-        for s in range(self.num_shards):
-            rng = np.random.default_rng((self.seed, epoch, s))
-            out[s] = rng.permutation(int(self.shard_valid[s]))[:rows]
-        return out
+        rng = np.random.default_rng((self.seed, epoch, s))
+        return rng.permutation(int(self.shard_valid[s]))[:rows].astype(np.int64)
+
+    def _shard_streams(self, epoch: int) -> np.ndarray:
+        """(num_shards, steps * batch) local row offsets of every shard."""
+        return np.stack([self._shard_stream(epoch, s)
+                         for s in range(self.num_shards)])
 
     def _put_idx(self, host_idx: np.ndarray) -> torch.Tensor:
         return _put(host_idx, self.device)
 
     def epoch(self, epoch: int, start_step: int = 0):
-        """Yield per-step ``(B,)`` device index vectors."""
-        streams = self._shard_streams(epoch)
+        """Yield this shard's per-step ``(B,)`` device index vectors."""
+        stream = self._shard_stream(epoch, self.shard)
         bs = self.shard_batch_size
         for step in range(start_step, self.steps_per_epoch):
-            yield self._put_idx(streams[:, step * bs:(step + 1) * bs].reshape(-1))
+            yield self._put_idx(stream[step * bs:(step + 1) * bs])
 
     def epoch_groups(self, epoch: int, k: int, start_step: int = 0):
-        """The epoch's steps in groups of ``k``: ``("multi", idx (k, B))``
+        """This shard's steps in groups of ``k``: ``("multi", idx (k, B))``
         for each full group and ``("single", idx (B,))`` for each step of
-        the ragged tail, as the JAX package's ``epoch_groups``."""
-        streams = self._shard_streams(epoch)
+        the ragged tail, as the JAX package's ``epoch_groups`` (whose
+        ``(k, shards * B)`` blocks hold this shard's in column block
+        ``shard``)."""
+        stream = self._shard_stream(epoch, self.shard)
         bs = self.shard_batch_size
         step = start_step
         while step < self.steps_per_epoch:
             take = min(k, self.steps_per_epoch - step)
-            block = streams[:, step * bs:(step + take) * bs]
-            # (shards, take * bs) -> (take, shards * bs) batch layout
-            block = block.reshape(self.num_shards, take, bs).transpose(1, 0, 2)
-            block = block.reshape(take, -1)
+            block = stream[step * bs:(step + take) * bs].reshape(take, bs)
             if take == k:
                 yield "multi", self._put_idx(block)
             else:
@@ -160,30 +200,38 @@ class ResidentEvalData:
     repeating the last row, and each step carries a ``(B,)`` ``valid``
     vector beside its ``(B,)`` row indices, which the resident eval step
     multiplies into the joint mask, so that pad rows count in neither the
-    masked loss nor the PCKh counts.  One device: one shard of all rows,
-    as the JAX package's layout on a 1-device mesh.
+    masked loss nor the PCKh counts.  The shards' pad rows (the strided
+    layout's) are invalid the same way.  Rank ``shard`` stages its shard and
+    runs block ``shard`` of each step's ``(num_shards * B,)`` global
+    arrays.
     """
 
-    def __init__(self, dataset, batch_size: int, device=DEFAULT_DEVICE):
+    def __init__(self, dataset, global_batch_size: int, device=DEFAULT_DEVICE,
+                 *, num_shards: int = 1, shard: int = 0):
         arrays = resident_arrays(dataset)
         if arrays is None:
             raise ValueError("dataset is not array-backed; pack it first or "
                              "use the streaming loader")
-        self.device = resolve_device(device)
-        n = len(dataset)
-        if n < 1:
+        if len(dataset) < 1:
             raise ValueError("empty val split")
-        self.num_shards = 1
-        self.shard_batch_size = batch_size
-        self.rows_per_shard = n
-        self.shard_valid = np.array([n])
-        self.steps_per_epoch = -(-n // batch_size)
-        self.resident = {k: torch.from_numpy(np.array(a)).to(self.device)
-                         for k, a in arrays.items()}
+        _check_shards(global_batch_size, num_shards, shard)
+        self.device = resolve_device(device)
+        self.num_shards = num_shards
+        self.shard = shard
+        self.global_batch_size = global_batch_size
+        self.shard_batch_size = global_batch_size // num_shards
+        self.rows_per_shard, self.shard_valid = _strided_layout(
+            len(dataset), num_shards)
+        self.steps_per_epoch = -(-self.rows_per_shard // self.shard_batch_size)
+        self.resident = _stage_shard(arrays, self.device, shard, num_shards,
+                                     self.rows_per_shard,
+                                     int(self.shard_valid[shard]))
         self.nbytes = sum(a.nbytes for a in arrays.values())
 
     def _step_host_arrays(self, step: int):
-        """Host ``(idx int32, valid float32)`` of one step, each ``(B,)``."""
+        """Host ``(idx int32, valid float32)`` of one step in the global
+        layout, each ``(num_shards * B,)``: shard ``s``'s rows in block
+        ``s``."""
         bs = self.shard_batch_size
         local = np.arange(step * bs, (step + 1) * bs)
         idx = np.minimum(local, self.rows_per_shard - 1)
@@ -193,8 +241,9 @@ class ResidentEvalData:
                 valid.reshape(-1).astype(np.float32))
 
     def host_rows(self, step: int) -> np.ndarray:
-        """Dataset row of each batch position of one step (pads repeat the
-        last valid row), for host-side sample renders."""
+        """Dataset row of each global batch position of one step (pads
+        repeat their shard's last valid row), for host-side sample
+        renders."""
         bs = self.shard_batch_size
         local = np.arange(step * bs, (step + 1) * bs)
         shard = np.repeat(np.arange(self.num_shards), bs)
@@ -203,16 +252,21 @@ class ResidentEvalData:
         return (clamped * self.num_shards + shard).astype(np.int64)
 
     def _put_pair(self, idx: np.ndarray, valid: np.ndarray):
-        return _put(idx.astype(np.int64), self.device), _put(valid, self.device)
+        """This shard's block of global ``(..., shards * B)`` arrays, on the
+        device."""
+        bs, lo = self.shard_batch_size, self.shard * self.shard_batch_size
+        return (_put(idx[..., lo:lo + bs].astype(np.int64), self.device),
+                _put(valid[..., lo:lo + bs], self.device))
 
     def epoch(self):
-        """Yield per-step device ``(idx, valid)`` pairs covering the split."""
+        """Yield this shard's per-step device ``(idx, valid)`` pairs; over
+        all shards they cover the split."""
         for step in range(self.steps_per_epoch):
             yield self._put_pair(*self._step_host_arrays(step))
 
     def epoch_stacked(self):
-        """The whole epoch's ``(idx, valid)`` as ``(steps, B)`` device
-        tensors, the input of :func:`..train.loop.make_resident_eval_scan`."""
+        """This shard's whole epoch as ``(steps, B)`` device ``(idx, valid)``,
+        the input of :func:`..train.loop.make_resident_eval_scan`."""
         pairs = [self._step_host_arrays(s) for s in range(self.steps_per_epoch)]
         return self._put_pair(np.stack([p[0] for p in pairs]),
                               np.stack([p[1] for p in pairs]))

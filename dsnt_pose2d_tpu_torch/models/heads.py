@@ -14,7 +14,10 @@ The backbone emits per-stack raw score maps ``(S, B, J, H, W)``
   (``PoseOutput.fc_coords``), with the coordinate loss on it.
 
 The loss is a visibility-masked mean per stack, summed (or averaged) over
-stacks; only the last stack is decoded.
+stacks; only the last stack is decoded.  The masked means divide by the
+visible joints of the global batch (:func:`..ops.losses.visible_count`), so
+under data parallelism the loss and the aux values are this rank's shares,
+which sum over ranks to the global batch's.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from .. import ops
 from ..ops.cuda.dsnt_head import PREACT_KINDS, fused_dsnt_head
+from ..ops.losses import visible_count
 from ..utils.config import ModelConfig
 
 
@@ -60,12 +64,11 @@ def _coord_losses(coords, t, cfg: ModelConfig):
     return ops.COORD_LOSSES[cfg.coord_loss](coords, t)
 
 
-def _masked_mean_keep_stacks(per_joint, mask):
-    """(S, B, J) losses + (S, B, J) mask -> (S,) masked means."""
-    mask = mask.to(per_joint.dtype)
-    num = (per_joint * mask).sum(dim=(1, 2))
-    den = mask.sum(dim=(1, 2)).clamp_min(1.0)
-    return num / den
+def _masked_mean_keep_stacks(per_joint, mask, count):
+    """(S, B, J) losses + (S, B, J) mask -> (S,) masked means over
+    ``count`` visible joints (every stack has the same mask)."""
+    num = (per_joint * mask.to(per_joint.dtype)).sum(dim=(1, 2))
+    return num / count
 
 
 def _stack_reduce(per_stack, cfg: ModelConfig):
@@ -91,13 +94,15 @@ def pose_loss(output: PoseOutput, target_coords: torch.Tensor,
         target_hm = ops.make_gauss(t, raw.shape[-2:], cfg.hm_sigma,
                                    normalize=cfg.gauss_target_normalize)
         per_joint = ((raw.to(torch.float32) - target_hm) ** 2).mean(dim=(-2, -1))
-        per_stack = _masked_mean_keep_stacks(per_joint, m)
+        per_stack = _masked_mean_keep_stacks(
+            per_joint, m, visible_count(mask.to(per_joint.dtype)))
         coords = ops.heatmaps_to_coords(raw[-1].to(torch.float32))
         return _stack_reduce(per_stack, cfg), {"coords": coords,
                                                "mse": per_stack[-1]}
     if cfg.output_strat == "fc":
+        per_joint = _coord_losses(output.fc_coords, t, cfg)
         per_stack = _masked_mean_keep_stacks(
-            _coord_losses(output.fc_coords, t, cfg), m)
+            per_joint, m, visible_count(mask.to(per_joint.dtype)))
         return _stack_reduce(per_stack, cfg), {"coords": output.fc_coords[-1],
                                                "euclidean": per_stack[-1]}
     if cfg.output_strat != "dsnt":
@@ -113,10 +118,11 @@ def pose_loss(output: PoseOutput, target_coords: torch.Tensor,
         reg = _reg_losses(act, t, cfg)
     euc = _coord_losses(coords, t, cfg)
     per_joint = euc if reg is None else euc + cfg.reg_coeff * reg
-    per_stack = _masked_mean_keep_stacks(per_joint, m)
+    count = visible_count(mask.to(per_joint.dtype))
+    per_stack = _masked_mean_keep_stacks(per_joint, m, count)
     aux = {"coords": coords[-1],
-           "euclidean": ops.average_loss(euc[-1], mask),
-           "reg": (ops.average_loss(reg[-1], mask) if reg is not None
+           "euclidean": ops.average_loss(euc[-1], mask, count),
+           "reg": (ops.average_loss(reg[-1], mask, count) if reg is not None
                    else torch.zeros((), device=raw.device))}
     return _stack_reduce(per_stack, cfg), aux
 

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, world_size
+
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9     # flax's convention: the weight of the old statistic
 _AUTOCAST_DTYPES = (torch.bfloat16, torch.float16)
@@ -73,6 +75,12 @@ class BatchNorm(nn.BatchNorm2d):
     advanced (flax has no such counter).  When a :func:`remat` scope
     recomputes the forward in the backward pass, the running statistics do
     not move again.
+
+    Under a process group of size W > 1 the batch statistics are those of
+    the global batch (the JAX package's BN under a ``data`` mesh): the
+    per-channel sums of x and x^2 are summed over ranks by a differentiable
+    all-reduce, whose backward sums the gradient over ranks again.  A remat
+    recompute issues the all-reduce again, in the same order on every rank.
     """
 
     def __init__(self, ch: int):
@@ -83,8 +91,19 @@ class BatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        ranks = world_size()
+        if ranks > 1:
+            # Global-batch statistics: one differentiable all-reduce of the
+            # per-channel [sum x, sum x^2]; every rank holds a batch of the
+            # same shape, so the global count is the local one times W.
+            n = xf.numel() // xf.shape[1] * ranks
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=dims),
+                                             (xf * xf).sum(dim=dims)]))
+            mean, mean2 = (sums / n).chunk(2)
+        else:
+            mean = xf.mean(dim=dims)
+            mean2 = (xf * xf).mean(dim=dims)
+        var = (mean2 - mean * mean).clamp_min(0.0)
         if not getattr(_RECOMPUTE, "on", False):
             self._update_running(mean.detach(), var.detach())
         mul = torch.rsqrt(var + self.eps) * self.weight

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum_
 from .coords import normalized_linspace
 from .gauss import make_gauss
 
@@ -87,9 +88,28 @@ REGULARIZERS = {
 }
 
 
-def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None):
-    """Visibility-masked mean; invisible joints leave the denominator."""
+def visible_count(mask: torch.Tensor) -> torch.Tensor:
+    """The masked mean's denominator: the visible joints of the GLOBAL
+    batch, at least 1.  Under a process group of size > 1 the local count
+    is summed over ranks (one all-reduce, outside autograd), so every
+    rank's masked mean is its share of the global batch's mean, as the JAX
+    package's ``average_loss`` on a ``data`` mesh."""
+    count = mask.sum().detach()
+    return all_reduce_sum_(count).clamp_min(1.0)
+
+
+def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None,
+                 count: torch.Tensor | None = None):
+    """Visibility-masked mean; invisible joints leave the denominator.
+
+    The denominator is ``count`` if given, else :func:`visible_count` of
+    ``mask`` (the global batch's), so under data parallelism the result is
+    this rank's share: the sum over ranks is the global mean, and so are
+    the summed gradients.  Without a mask it is this batch's plain mean.
+    """
     if mask is None:
         return losses.mean()
     mask = mask.to(losses.dtype)
-    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    if count is None:
+        count = visible_count(mask)
+    return (losses * mask).sum() / count

@@ -20,6 +20,11 @@ written to a temporary directory that is renamed into place, so a run that
 dies mid-save leaves no partial checkpoint.  A restore loads with
 ``weights_only=True`` into the template :class:`.state.TrainState` in place:
 the steps that hold that state train on from it.
+
+Under data parallelism every rank calls the saves: rank 0 writes (the
+replicas are equal), then all ranks meet at a barrier, so that no rank
+reads or lists a checkpoint before it is in place.  Every rank restores
+the same file.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import warnings
 
 import torch
 
+from ..parallel.mesh import barrier, is_main_process
 from ..utils.config import MODEL_VERSION, Config, config_from_json, config_to_json
 
 CONFIG_FILENAME = "config.json"
@@ -117,7 +123,7 @@ class CheckpointManager:
                  max_to_keep: int = 3):
         self.dir = os.path.abspath(out_dir)
         os.makedirs(self.dir, exist_ok=True)
-        if cfg is not None:
+        if cfg is not None and is_main_process():
             with open(os.path.join(self.dir, CONFIG_FILENAME), "w") as f:
                 f.write(config_to_json(cfg))
         self.mgr = _Store(os.path.join(self.dir, "ckpt"), max_to_keep)
@@ -130,20 +136,24 @@ class CheckpointManager:
 
     def save(self, epoch: int, state, *, is_best: bool = False,
              metrics: dict | None = None):
-        payload = state_payload(state)
-        meta = {"epoch": epoch, "step": state.step, "step_in_epoch": 0,
-                "metrics": metrics or {}}
-        self.mgr.save(epoch, payload, meta)
-        if is_best:
-            self.best_mgr.save(epoch, payload, meta)
-            with open(os.path.join(self.dir, BEST_STEP_FILENAME), "w") as f:
-                json.dump({"epoch": epoch, "metrics": metrics or {}}, f)
+        if is_main_process():
+            payload = state_payload(state)
+            meta = {"epoch": epoch, "step": state.step, "step_in_epoch": 0,
+                    "metrics": metrics or {}}
+            self.mgr.save(epoch, payload, meta)
+            if is_best:
+                self.best_mgr.save(epoch, payload, meta)
+                with open(os.path.join(self.dir, BEST_STEP_FILENAME), "w") as f:
+                    json.dump({"epoch": epoch, "metrics": metrics or {}}, f)
+        barrier()
 
     def save_step(self, state, *, epoch: int, step_in_epoch: int):
         """Mid-epoch save, keyed by the global step (for an exact resume)."""
-        self.step_mgr.save(state.step, state_payload(state),
-                           {"epoch": epoch, "step": state.step,
-                            "step_in_epoch": step_in_epoch, "metrics": {}})
+        if is_main_process():
+            self.step_mgr.save(state.step, state_payload(state),
+                               {"epoch": epoch, "step": state.step,
+                                "step_in_epoch": step_in_epoch, "metrics": {}})
+        barrier()
 
     def restore_latest(self, state_template):
         """Restore the most recent save of the epoch AND step stores.

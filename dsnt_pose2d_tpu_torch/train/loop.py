@@ -33,10 +33,16 @@ pixels.
 :class:`EvalDriver` is the evaluate/infer path without the Trainer: a
 restore template, the eval pass, and ``predict`` in dataset order.
 :func:`set_debug_nans` makes every train step stop at the first NaN.
+
+Under a process group of W > 1 ranks (:mod:`..parallel.mesh`) each step
+runs on this rank's rows of the global batch and computes the global
+batch's step: the draws are the global batch's, the metrics and the eval
+counts are summed over ranks, and ``predict`` gathers every rank's rows.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import time
@@ -53,6 +59,8 @@ from ..data.transforms import flip_permutation, invert, transform_coords
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..evaluation.pckh import PCKhEvaluator, pckh_batch_counts
 from ..models.factory import PoseModel
+from ..parallel.mesh import (all_reduce_sum_, check_row_order, is_main_process,
+                             make_mesh, rank, world_size)
 from ..utils.config import Config
 from ..utils.visualization import render_skeleton, save_png
 from .state import TrainState, create_train_state, global_norm, step_seed
@@ -82,29 +90,78 @@ def set_debug_nans(on: bool):
     before the optimizer step, raising ``FloatingPointError``.  Unlike
     JAX's, a NaN made in the forward pass is caught at the loss, not at the
     op that made it, and the checks wait for the step (one device sync
-    each).
+    each).  Under a process group of size > 1 anomaly mode keeps its
+    tracebacks but does not raise inside the backward pass (one rank would
+    leave the others waiting in the next BN all-reduce): the gradient check
+    after the sum over ranks raises on every rank together.
     """
     global _DEBUG_NANS
     _DEBUG_NANS = bool(on)
     torch.autograd.set_detect_anomaly(_DEBUG_NANS)
 
 
-def _backward_checked(loss: torch.Tensor, named_params):
-    """``loss.backward()`` under :func:`set_debug_nans`: a non-finite loss,
-    a backward function that returns NaN (anomaly mode) or a non-finite
-    gradient raises ``FloatingPointError``."""
-    if not torch.isfinite(loss).all():
-        raise FloatingPointError(f"debug_nans: the loss is {loss.item()}")
+def _backward_checked(loss: torch.Tensor, named_params=(),
+                      global_loss: torch.Tensor | None = None):
+    """``loss.backward()`` under :func:`set_debug_nans`: a non-finite loss
+    (``global_loss`` if given: the loss summed over ranks, the same on every
+    rank), a backward function that returns NaN (anomaly mode, in one
+    process only) or a non-finite gradient among ``named_params`` raises
+    ``FloatingPointError``.  The train step checks its gradients later,
+    after they are summed over ranks (:func:`_check_grads`), so that every
+    rank raises together."""
+    checked = loss if global_loss is None else global_loss
+    if not torch.isfinite(checked).all():
+        raise FloatingPointError(f"debug_nans: the loss is {checked.item()}")
     try:
-        loss.backward()
+        with torch.autograd.set_detect_anomaly(True, check_nan=world_size() == 1):
+            loss.backward()
     except RuntimeError as e:
         if "returned nan values" in str(e):
             raise FloatingPointError(f"debug_nans: {e}") from e
         raise
+    _check_grads(named_params)
+
+
+def _check_grads(named_params):
+    """Raise ``FloatingPointError`` at the first non-finite gradient (under
+    :func:`set_debug_nans`, after the gradients are summed over ranks)."""
     named = [(n, p.grad) for n, p in named_params if p.grad is not None]
-    if not torch.isfinite(global_norm([g for _, g in named])):
+    if named and not torch.isfinite(global_norm([g for _, g in named])):
         bad = next(n for n, g in named if not torch.isfinite(g).all())
         raise FloatingPointError(f"debug_nans: the gradient of {bad} is not finite")
+
+
+def _sum_over_ranks(values: dict) -> dict:
+    """Each tensor of ``values`` summed over ranks, outside autograd, in ONE
+    all-reduce (a flat vector of their common dtype); the tensors as they
+    are without a group of size > 1."""
+    values = {k: v.detach() for k, v in values.items()}
+    if world_size() == 1:
+        return values
+    dtype = functools.reduce(torch.promote_types,
+                             (v.dtype for v in values.values()))
+    flat = all_reduce_sum_(torch.cat([v.reshape(-1).to(dtype)
+                                      for v in values.values()]))
+    parts = flat.split([v.numel() for v in values.values()])
+    return {k: p.view_as(v).to(v.dtype)
+            for (k, v), p in zip(values.items(), parts)}
+
+
+def _rank_draws(local_batch: int, cfg: Config, dev: torch.device,
+                seed: int) -> dict:
+    """This rank's rows of the GLOBAL batch's augmentation draws: every rank
+    draws for ``W * local_batch`` rows from a generator seeded with ``seed``
+    and keeps block ``rank``, so that W ranks see exactly the draws of one
+    process on the global batch (the JAX step draws once for it too)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ranks = world_size()
+    draws = sample_train_draws(local_batch * ranks, cfg.data, gen)
+    if ranks == 1:
+        return draws
+    lo = rank() * local_batch
+    return {k: None if v is None else v[lo:lo + local_batch]
+            for k, v in draws.items()}
 
 
 def normalized_to_crop_px(coords_norm: torch.Tensor, size: int) -> torch.Tensor:
@@ -143,6 +200,19 @@ def _decode_averaged(model: PoseModel, cfg: Config, images):
                                dim=-1)[..., perm, :]
         coords_norm = 0.5 * (coords_norm + coords_f)
     return output, coords_norm
+
+
+def _check_host_split(mesh, *loaders):
+    """Each loader must be this rank's host split of ``mesh``: a loader of
+    the whole stream on every rank would train each rank on all rows."""
+    for ld in loaders:
+        if ld is not None and (getattr(ld, "num_hosts", 1),
+                               getattr(ld, "host_id", 0)) != (mesh.world_size,
+                                                               mesh.rank):
+            raise ValueError(
+                f"loader split over {getattr(ld, 'num_hosts', 1)} hosts "
+                f"(host {getattr(ld, 'host_id', 0)}) on rank {mesh.rank} of "
+                f"{mesh.world_size}: pass num_hosts=W, host_id=rank")
 
 
 def _check_device(model: PoseModel, device) -> torch.device:
@@ -185,10 +255,17 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
     The step's :class:`.state.TrainState` (step count, model, optimizer
     chain, seed) is ``step.state``; each call advances it by one optimizer
     step.  The augmentation draws come from a ``torch.Generator`` on the
-    device seeded with ``step_seed(seed, step)``, unless ``draws`` are given
-    (the tests pass the JAX package's).  ``grad_norm`` is the global norm of
-    the gradients before any clip.  The metrics stay on the device: reading
-    them waits for the step.
+    device seeded with ``step_seed(seed, step)`` (:func:`_rank_draws`),
+    unless ``draws`` for the batch's rows are given (the tests pass the JAX
+    package's).  ``grad_norm`` is the global norm of the gradients before
+    any clip.  The metrics stay on the device: reading them waits for the
+    step.
+
+    Under a process group of size W > 1, ``batch`` is this rank's rows of
+    the global batch: BN takes global statistics, the loss is this rank's
+    share of the global loss, the gradients are summed over ranks
+    (:meth:`.state.OptimizerChain.step`), and the metrics returned are
+    those of the global batch, equal on every rank.
     """
     dev = _check_device(model, device)
     in_size = model.input_size
@@ -197,23 +274,24 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
     def train_step(batch: dict, draws: dict | None = None) -> dict:
         batch = _on_device(batch, dev)
         if draws is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(step_seed(state.seed, state.step))
-            draws = sample_train_draws(batch["canvases"].shape[0], cfg.data,
-                                       gen)
+            draws = _rank_draws(batch["canvases"].shape[0], cfg, dev,
+                                step_seed(state.seed, state.step))
         with torch.no_grad():
             pre = _preprocess(batch, cfg, in_size, draws)
         output = model.forward(pre["images"], train=True)
         loss, aux = model.loss(output, pre["coords"], pre["mask"])
+        metrics = _sum_over_ranks(
+            {"loss": loss, **{k: aux[k] for k in AUX_METRICS if k in aux}})
         state.optimizer.zero_grad()
+        check = None
         if _DEBUG_NANS:
-            _backward_checked(loss, model.net.named_parameters())
+            _backward_checked(loss, global_loss=metrics["loss"])
+            check = functools.partial(_check_grads, model.net.named_parameters())
         else:
             loss.backward()
-        grad_norm = state.optimizer.step()
+        grad_norm = state.optimizer.step(check)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                **{k: aux[k].detach() for k in AUX_METRICS if k in aux}}
+        return {"loss": metrics.pop("loss"), "grad_norm": grad_norm, **metrics}
 
     train_step.state = state
     return train_step
@@ -335,6 +413,9 @@ def make_eval_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
     The loss and the ground truth's mapping come from the canonical
     scale-1.0 pass, whatever ``eval_scales`` says; each other scale re-crops
     and decodes, and the predictions average in original-image pixels.
+    Under data parallelism the loss and the PCKh counts are the global
+    batch's (summed over ranks, as the JAX step's psum) and ``pred_orig``
+    holds this rank's rows.
     """
     dev = _check_device(model, device)
     in_size = model.input_size
@@ -360,8 +441,9 @@ def make_eval_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
         gt_orig = _to_original_px(pre["coords"], pre["crop_from_orig"], in_size)
         correct, total = pckh_batch_counts(
             pred_orig, gt_orig, pre["mask"], pre["head_length"])
-        return {"loss": loss, "pckh_correct": correct, "pckh_total": total,
-                "pred_orig": pred_orig}
+        sums = _sum_over_ranks({"loss": loss, "pckh_correct": correct,
+                                "pckh_total": total})
+        return {**sums, "pred_orig": pred_orig}
 
     return eval_step
 
@@ -442,7 +524,7 @@ def _lagged_eval(outputs, num_joints: int):
 
 def _resident_sample_batch(res, dataset) -> dict:
     """The host rows of the resident pass's first step (the pass never
-    builds a host batch), for the sample renders."""
+    builds a host batch), for the sample renders: shard 0's, rank 0's."""
     from ..data.resident import resident_arrays
 
     rows = res.host_rows(0)[:4]
@@ -458,7 +540,7 @@ def run_evaluation(eval_step, device, loader, num_joints: int,
     result, first = _lagged_eval(
         ((host, eval_step(dev)) for host, dev in
          prefetch_pairs(loader.epoch(0), device)), num_joints)
-    if sample_dir and first is not None:
+    if sample_dir and first is not None and is_main_process():
         _dump_samples(sample_dir, epoch, first[0],
                       first[1]["pred_orig"].cpu().numpy())
     return result
@@ -473,7 +555,8 @@ def run_evaluation_resident(resident_eval_step, res, num_joints: int,
     result, first = _lagged_eval(
         ((None, resident_eval_step(res.resident, idx, valid))
          for idx, valid in res.epoch()), num_joints)
-    if sample_dir and first is not None and dataset is not None:
+    if (sample_dir and first is not None and dataset is not None
+            and is_main_process()):
         _dump_samples(sample_dir, epoch, _resident_sample_batch(res, dataset),
                       first[1]["pred_orig"].cpu().numpy())
     return result
@@ -492,7 +575,7 @@ def run_evaluation_resident_scan(resident_eval_scan, res, num_joints: int,
     evaluator = PCKhEvaluator(num_joints)
     for correct, total in zip(host["pckh_correct"], host["pckh_total"]):
         evaluator.add_counts(correct, total)
-    if sample_dir and dataset is not None:
+    if sample_dir and dataset is not None and is_main_process():
         _dump_samples(sample_dir, epoch, _resident_sample_batch(res, dataset),
                       host["pred_orig"][0])
     losses = host["loss"]
@@ -550,8 +633,16 @@ class Trainer:
     archive after it (:meth:`_swap_to_packed`).  For a ``resnet*`` base,
     ``cfg.data.pretrained_resnet`` (a torchvision state dict, ``.npz`` or
     ``torch.save``) is loaded into the backbone when the Trainer is made,
-    before its first step.  Several processes are not ported yet (ROADMAP
-    Queue 1, Data parallel).
+    before its first step.
+
+    Over a ``mesh`` of W processes (:func:`..parallel.mesh.make_mesh`; the
+    default group's when None) each rank trains its share of every global
+    batch: the loaders split hosts as ``ShardedLoader(num_hosts=W,
+    host_id=rank)``, a resident split stages this rank's strided shard,
+    and the steps compute the global batch's step.  Only rank 0 logs,
+    renders samples and writes metric records (``metric_writer`` is dropped
+    on the other ranks); ``images_per_sec`` counts the global batch; every
+    rank calls the checkpointer, which writes on rank 0.
     """
 
     model: PoseModel
@@ -562,9 +653,15 @@ class Trainer:
     metric_writer: Any = None         # train.metrics.MetricWriter
     hooks: tuple = ()
     device: Any = DEFAULT_DEVICE
+    mesh: Any = None                  # parallel.mesh.Mesh
 
     def __post_init__(self):
         self.device = _check_device(self.model, self.device)
+        if self.mesh is None:
+            self.mesh = make_mesh(device=self.device)
+        _check_host_split(self.mesh, self.train_loader, self.val_loader)
+        if self.mesh.rank != 0:
+            self.metric_writer = None
         self._load_pretrained()
         self._autopack = self._maybe_autopack()
         self.resident = self._maybe_resident()
@@ -591,9 +688,9 @@ class Trainer:
             self.resident_eval_scan = make_resident_eval_scan(
                 self.model, self.cfg, self.device, self.eval_step)
 
-    @staticmethod
-    def _log0(msg: str):
-        print(msg, flush=True)
+    def _log0(self, msg: str):
+        if self.mesh.rank == 0:
+            print(msg, flush=True)
 
     def _load_pretrained(self):
         """Load ``cfg.data.pretrained_resnet`` into a ResNet backbone, in
@@ -631,8 +728,7 @@ class Trainer:
         """
         if not getattr(self.cfg.data, "auto_pack", True):
             return None
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() != 1):
+        if self.mesh.world_size != 1:
             return None
         ds = self.train_loader.dataset
         # Duck-typed: only a decode-backed MPII split (images_dir +
@@ -667,8 +763,9 @@ class Trainer:
         self._autopack = None
         old = self.train_loader
         self.train_loader = ShardedLoader(
-            PackedDataset(packed_dir, subset), old.batch_size,
-            shuffle=old.shuffle, seed=old.seed, drop_last=old.drop_last,
+            PackedDataset(packed_dir, subset), old.global_batch_size,
+            shuffle=old.shuffle, seed=old.seed, num_hosts=old.num_hosts,
+            host_id=old.host_id, drop_last=old.drop_last,
             prefetch=old.prefetch, workers=old.workers)
         self._log0(f"auto_pack: published {packed_dir} after epoch {epoch}; "
                    "train input is now the mmap-packed reader")
@@ -686,6 +783,7 @@ class Trainer:
                                      resident_nbytes)
 
         ds = self.train_loader.dataset
+        shards = self.mesh.world_size
         if resident_arrays(ds) is None:
             if mode == "on":
                 raise ValueError(
@@ -694,9 +792,10 @@ class Trainer:
             self._log0("device_resident=auto: train dataset is not "
                        "array-backed -> streaming")
             return None
-        share = resident_nbytes(ds)
+        share = resident_nbytes(ds) // shards
         budget = resident_budget_bytes(self.device)
-        if mode == "auto" and not resident_fits(ds, self.device):
+        if mode == "auto" and not resident_fits(ds, self.device,
+                                                num_shards=shards):
             self._log0(
                 f"device_resident=auto: train split {share / 2**30:.2f} "
                 f"GiB/device > budget {budget / 2**30:.2f} GiB -> streaming "
@@ -707,7 +806,8 @@ class Trainer:
             f"({share / 2**30:.2f} GiB/device, budget {budget / 2**30:.2f} "
             "GiB)")
         return ResidentTrainData(ds, self.cfg.train.batch_size, self.device,
-                                 seed=self.cfg.train.seed)
+                                 seed=self.cfg.train.seed, num_shards=shards,
+                                 shard=self.mesh.rank)
 
     def _maybe_val_resident(self):
         """Stage the val split on the device too, when configured and it
@@ -722,17 +822,20 @@ class Trainer:
         ds = self.val_loader.dataset
         if resident_arrays(ds) is None:
             return None
+        shards = self.mesh.world_size
         staged = self.resident.nbytes if self.resident is not None else 0
         if mode == "auto" and not resident_fits(ds, self.device,
-                                                extra_nbytes=staged):
+                                                extra_nbytes=staged,
+                                                num_shards=shards):
             self._log0(
                 "device_resident=auto: val split does not fit beside the "
                 "staged train split -> streaming eval")
             return None
         self._log0(
             f"device_resident={mode}: staging val split on the device "
-            f"({resident_nbytes(ds) / 2**30:.2f} GiB/device)")
-        return ResidentEvalData(ds, self.cfg.train.batch_size, self.device)
+            f"({resident_nbytes(ds) // shards / 2**30:.2f} GiB/device)")
+        return ResidentEvalData(ds, self.cfg.train.batch_size, self.device,
+                                num_shards=shards, shard=self.mesh.rank)
 
     def init_state(self) -> TrainState:
         """The state the Trainer's steps train: the restore template."""
@@ -759,7 +862,7 @@ class Trainer:
                 "(init_state()), restored in place: its steps never see "
                 "another TrainState and would train on the old weights")
         cfg = self.cfg
-        local_bs = self.train_loader.batch_size
+        local_bs = self.train_loader.local_batch_size
         k_dispatch = max(cfg.train.steps_per_dispatch, 1)
         every_steps = cfg.train.checkpoint_every_steps
         spe = (self.resident or self.train_loader).steps_per_epoch
@@ -837,7 +940,8 @@ class Trainer:
 
             summary = {"epoch": epoch, "train_loss": train_loss,
                        "epoch_seconds": epoch_time,
-                       "images_per_sec": n_steps * local_bs / max(epoch_time, 1e-9)}
+                       "images_per_sec": n_steps * local_bs * self.mesh.world_size
+                       / max(epoch_time, 1e-9)}
             will_ckpt = bool(self.checkpointer) and \
                 (epoch + 1) % cfg.train.checkpoint_every_epochs == 0
             if self.val_loader is not None and \
@@ -894,16 +998,22 @@ class EvalDriver:
     (the model and an optimizer chain, which a checkpoint also holds):
     :meth:`init_state` returns it as the restore template, a checkpoint
     restores into it in place, and :meth:`evaluate` and :meth:`predict`
-    take no other object.
+    take no other object.  Over a ``mesh`` of W processes the loader is
+    this rank's host split: :meth:`evaluate` gives the global counts and
+    :meth:`predict` every row, on every rank.
     """
 
     model: PoseModel
     cfg: Config
     loader: Any
     device: Any = DEFAULT_DEVICE
+    mesh: Any = None                  # parallel.mesh.Mesh
 
     def __post_init__(self):
         self.device = _check_device(self.model, self.device)
+        if self.mesh is None:
+            self.mesh = make_mesh(device=self.device)
+        _check_host_split(self.mesh, self.loader)
         self.state = create_train_state(self.model, self.cfg)
         self.eval_step = make_eval_fn(self.model, self.cfg, self.device)
         self._infer_step = None  # made at the first predict()
@@ -932,9 +1042,14 @@ class EvalDriver:
         Rows go back through the loader's per-batch index map
         (:meth:`..data.loader.ShardedLoader.global_index_batches`); pad rows
         (index -1) are dropped by index.  Coverage is an explicit mask, not a
-        NaN sentinel: a diverged model's NaN coords are written out.
+        NaN sentinel: a diverged model's NaN coords are written out.  Over W
+        ranks each step's global batch is gathered first (an all-reduce of
+        a zeroed ``(W * B, J, 2)`` buffer holding this rank's rows in block
+        ``rank``, the layout :func:`..parallel.mesh.check_row_order`
+        verifies), so every rank returns all rows.
         """
         self._own(state)
+        check_row_order(self.mesh)
         if self._infer_step is None:
             self._infer_step = make_infer_fn(self.model, self.cfg, self.device)
         n = len(self.loader.dataset)
@@ -954,7 +1069,8 @@ class EvalDriver:
         count = 0
         for _, dev_batch in prefetch_pairs(self.loader.epoch(0), self.device):
             if count < len(gidx):
-                inflight.append((gidx[count], self._infer_step(dev_batch)))
+                inflight.append((gidx[count],
+                                 self._gathered(self._infer_step(dev_batch))))
             count += 1
             if len(inflight) > _MAX_INFLIGHT:
                 scatter(*inflight.popleft())
@@ -968,3 +1084,13 @@ class EvalDriver:
                 f"predict() left {int((~covered).sum())} of {n} dataset rows "
                 "uncovered (loader/index-map mismatch)")
         return out_arr
+
+    @torch.inference_mode()
+    def _gathered(self, local: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows from every rank's ``local`` rows."""
+        w, b = self.mesh.world_size, local.shape[0]
+        if w == 1:
+            return local
+        out = local.new_zeros((w * b, *local.shape[1:]))
+        out[self.mesh.rank * b:(self.mesh.rank + 1) * b] = local
+        return all_reduce_sum_(out)

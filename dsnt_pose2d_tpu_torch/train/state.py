@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.factory import PoseModel
+from ..parallel.mesh import all_reduce_grads_
 from ..utils.config import Config, OptimConfig
 
 
@@ -82,10 +83,23 @@ class OptimizerChain:
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> torch.Tensor:
+    def step(self, check=None) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global norm
-        of the gradients before the clip (``optax.global_norm(grads)``)."""
+        of the gradients before the clip (``optax.global_norm(grads)``).
+
+        Under a process group of size > 1 the gradients are first summed
+        over ranks in place (each rank's loss is its share of the global
+        loss, so the sum is the global gradient; DDP's mean would not be),
+        in buckets (:func:`..parallel.mesh.all_reduce_grads_`): the norm,
+        the clip and the update then see the global gradient on every rank.
+        ``check``, if given, is called after that sum and before the update
+        (``--debug-nans``'s finite check: every rank sees the same sums, so
+        all raise together).
+        """
         grads = [p.grad for p in self.params if p.grad is not None]
+        all_reduce_grads_(grads)
+        if check is not None:
+            check()
         norm = global_norm(grads)
         if self.max_norm:
             clip_by_global_norm_(grads, self.max_norm, norm)
@@ -136,6 +150,7 @@ class TrainState:
 
 def create_train_state(model: PoseModel, cfg: Config,
                        steps_per_epoch: int = 1) -> TrainState:
+    """A step count of 0 and a fresh optimizer chain over ``model``."""
     opt = make_optimizer(model.net.parameters(), cfg.optim, steps_per_epoch,
                          cfg.train.epochs)
     return TrainState(step=0, model=model, optimizer=opt, seed=cfg.train.seed)

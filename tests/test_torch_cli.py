@@ -77,7 +77,10 @@ def test_flag_surface_matches_jax(name, monkeypatch):
     got = _surface(got_parser, "--device", "--config")
     assert got == exp
     device = next(a for a in got_parser._actions if "--device" in a.option_strings)
-    assert (device.default, device.choices) == ("cuda", ["cuda", "cpu"])
+    assert device.default == "cuda"
+    assert [device.type(d) for d in ("cuda", "cuda:1", "cpu")] == ["cuda", "cuda:1", "cpu"]
+    with pytest.raises(argparse.ArgumentTypeError):
+        device.type("tpu")
     config = [a for a in got_parser._actions if "--config" in a.option_strings]
     assert [a.default for a in config] == ([""] if name == "train" else [])
 
@@ -464,4 +467,4 @@ def test_cli_runs_as_a_module(name):
                            "--help"], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "--device {cuda,cpu}" in proc.stdout
+    assert "--device DEVICE" in proc.stdout and "cuda:N" in proc.stdout
