@@ -35,22 +35,27 @@ step without, ``vit_remat``), ``remat`` (the flagship hg8 train step with
 remat against without: losses and BN statistics bitwise, peak memory and
 step time of each), ``telemetry`` (``cli.train`` on the ViT in a
 process of its own with ``--profile-dir``, ``--dashboard-port`` and
-``--debug-nans``, and a NaN train step that must raise) and last ``dp``,
-data parallelism: ``cli.train`` on the flagship under
+``--debug-nans``, and a NaN train step that must raise), ``dp``, data
+parallelism: ``cli.train`` on the flagship under
 ``torch.distributed.run --nproc_per_node=1`` (NCCL, world size 1) against
 the same run without a launcher, bitwise; then two ranks sharing the card
 over gloo against one process on the same global batch (bf16 hg8, 3
 steps; fp32 hg2 at the flagship's widths, an eval pass, ``predict`` and a
 step), the ranks bitwise equal to each other and held relative to
 one-process runs of the same math in other orders, each rank's head and
-row_shift calls held against their plain versions.
+row_shift calls held against their plain versions; and last ``tp``,
+tensor parallelism: two ranks sharing the card over gloo at
+``model_parallel`` 2 (fp32 hg2 at the flagship's widths, 8 rows), each
+holding its shards of the model, against one process the same way, with
+each rank's shard shapes, its replicated leaves against the other rank's,
+the bytes it holds and the model-axis collectives of a step.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
 (``--dp-rank <dir>`` and ``--dp-cli <flags>`` are the ``dp`` phase's own
-child processes.)
+child processes, ``--tp-rank <dir>`` the ``tp`` phase's.)
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last is the card's name and power limit as
@@ -2482,12 +2487,18 @@ def dp_config(kind):
     return cfg
 
 
-def dp_digest(net) -> str:
-    """SHA-256 of every parameter and BN statistic, in state-dict order."""
+def dp_digest(net, replicated_only=False) -> str:
+    """SHA-256 of every parameter and BN statistic, in state-dict order (the
+    leaves no rank holds a shard of, with ``replicated_only``)."""
     import hashlib
 
+    from dsnt_pose2d_tpu_torch.parallel.tp import shard_of
+
+    params = dict(net.named_parameters())
     h = hashlib.sha256()
     for k, v in net.state_dict().items():
+        if replicated_only and shard_of(params.get(k)) is not None:
+            continue
         h.update(k.encode())
         h.update(v.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
@@ -2514,15 +2525,21 @@ def dp_restore(state, snap):
 
 
 def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
-             eval_state_dict=None, starts=None) -> dict:
-    """The dp phase's path for one precision, in one process (``mesh`` None)
-    or as one rank: for fp32 without ``order`` first the eval pass and
-    ``predict`` over DP_VAL_ROWS rows with ``eval_state_dict`` (the
-    weights tempered in eval mode); then train steps from ``state_dict`` on
-    this process's rows of the global batch (the synthetic batch of BATCH
-    rows), each followed by a digest of the state; the collectives, the
-    gradient all-reduce's device time (CUDA events), the step times and the
-    peak memory.  A rank runs DP_STEPS (bf16) or 1 (fp32) steps in a row;
+             eval_state_dict=None, starts=None, global_batch=BATCH,
+             val_rows=DP_VAL_ROWS) -> dict:
+    """The dp and tp phases' path for one precision, in one process
+    (``mesh`` None) or as one rank: for fp32 without ``order`` first the
+    eval pass and ``predict`` over ``val_rows`` rows with
+    ``eval_state_dict`` (the weights tempered in eval mode); then train
+    steps from ``state_dict`` on this process's rows of the global batch
+    (the synthetic batch of ``global_batch`` rows), each followed by a digest of
+    the state (of its replicated leaves too); the collectives (in all and
+    over the model axis, with their bytes), the gradient all-reduce's
+    device time (CUDA events), the step times, the peak memory and the
+    bytes of the parameters and the optimizer state this process holds.
+    On a mesh with a model axis the model is sharded over it
+    (:func:`..parallel.tp.shard_model_`) and the fp32 state and gradients
+    come back whole.  A rank runs DP_STEPS (bf16) or 1 (fp32) steps in a row;
     rank 0 keeps a :func:`dp_snapshot` before each step after the first,
     and each rank then holds its head and row_shift calls against their
     plain versions (:func:`dp_kernels_vs_plain`).  One process runs one
@@ -2537,16 +2554,22 @@ def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
     from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
     from dsnt_pose2d_tpu_torch.ops import cuda as kernels
     from dsnt_pose2d_tpu_torch.parallel import mesh as pmesh
+    from dsnt_pose2d_tpu_torch.parallel import tp
     from dsnt_pose2d_tpu_torch.train import loop
     from dsnt_pose2d_tpu_torch.train import state as tstate
 
     world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    data, data_index = (1, 0) if mesh is None else (mesh.data_size,
+                                                    mesh.data_index)
     if starts is None:
         starts = [None] * (DP_STEPS if kind == "bf16" else 1)
     model = build_pose_model(cfg.model, device=dev, state_dict=state_dict)
+    if mesh is not None:
+        tp.shard_model_(model.net, mesh)
     out = {"kind": kind, "world": world, "rank": rank,
            "bns": sum(isinstance(m, torch.nn.BatchNorm2d)
-                      for m in model.net.modules())}
+                      for m in model.net.modules()),
+           "shapes": {k: tuple(p.shape) for k, p in model.net.named_parameters()}}
     heads_seen, shifts_seen = {}, {}
     recording = contextlib.ExitStack()
     if mesh is not None:
@@ -2555,9 +2578,9 @@ def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
     with strict_fp32() if kind == "fp32" else contextlib.nullcontext(), \
             recording:
         if kind == "fp32" and order is None:
-            val = ArrayDataset(make_synthetic_mpii(DP_VAL_ROWS, CANVAS, seed=5))
-            loader = ShardedLoader(val, BATCH, shuffle=False, drop_last=False,
-                                   num_hosts=world, host_id=rank)
+            val = ArrayDataset(make_synthetic_mpii(val_rows, CANVAS, seed=5))
+            loader = ShardedLoader(val, global_batch, shuffle=False, drop_last=False,
+                                   num_hosts=data, host_id=data_index)
             driver = loop.EvalDriver(
                 model=build_pose_model(cfg.model, device=dev,
                                        state_dict=eval_state_dict),
@@ -2569,14 +2592,14 @@ def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
             out["pred_orig"] = driver.predict()
             out["gidx"] = np.concatenate(loader.global_index_batches(0))
             del driver
-        host = make_synthetic_mpii(BATCH, CANVAS, seed=0)
+        host = make_synthetic_mpii(global_batch, CANVAS, seed=0)
 
         def draws(i):
             if order is None:
                 return None
             rows = torch.as_tensor(order, device=dev)
             return {k: None if v is None else v[rows] for k, v in loop._rank_draws(
-                BATCH, cfg, dev, tstate.step_seed(cfg.train.seed, i)).items()}
+                global_batch, cfg, dev, tstate.step_seed(cfg.train.seed, i)).items()}
 
         if order is not None:
             host = {k: v[order] for k, v in host.items()}
@@ -2595,8 +2618,31 @@ def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
             events.append((e0, e1, n))
             return n
 
+        # On a model axis: the sizes of the convs' gathers and input-
+        # gradient sums, replayed after the step (the same all-reduces on
+        # zeroed buffers, timed together), so that timing them does not
+        # slow the step.
+        base_model_reduce, model_sizes = tp._all_reduce, []
+
+        def sized_model_reduce(t, axis):
+            model_sizes.append((t.shape, t.dtype))
+            base_model_reduce(t, axis)
+
+        def replay_ms() -> float:
+            bufs = [torch.zeros(shape, dtype=dt, device=dev)
+                    for shape, dt in model_sizes]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in bufs:
+                base_model_reduce(b, pmesh.MODEL_AXIS)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
         tstate.all_reduce_grads_ = timed_reduce
-        rec = {"metrics": [], "digests": [], "collectives": [], "step_ms": [],
+        if mesh is not None and mesh.model_parallel > 1:
+            tp._all_reduce = sized_model_reduce
+        rec = {"metrics": [], "digests": [], "replicated_digests": [],
+               "collectives": [], "model_collectives": [], "step_ms": [],
                "snapshots": []}
         try:
             torch.cuda.synchronize()
@@ -2608,31 +2654,81 @@ def dp_drive(kind, cfg, state_dict, dev, mesh=None, order=None,
                 elif i and rank == 0 and mesh is not None:
                     rec["snapshots"].append(dp_snapshot(step.state))
                 pmesh.reset_collective_counts()
+                model_sizes.clear()
                 t0 = time.perf_counter()
                 m = step(batch, draws(step.state.step))
                 torch.cuda.synchronize()
                 rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
                 rec["collectives"].append(pmesh.collective_counts())
+                rec["model_collectives"].append(
+                    {"counts": pmesh.collective_counts(pmesh.MODEL_AXIS),
+                     "bytes": pmesh.collective_bytes(pmesh.MODEL_AXIS),
+                     "gathers_and_grad_sums_replayed_ms":
+                         replay_ms() if model_sizes else 0.0})
                 rec["metrics"].append({k: v.item() for k, v in m.items()})
                 rec["digests"].append(dp_digest(model.net))
+                rec["replicated_digests"].append(
+                    dp_digest(model.net, replicated_only=True))
             rec["launches"] = kernels.launch_counts()
         finally:
             tstate.all_reduce_grads_ = base_reduce
+            tp._all_reduce = base_model_reduce
         rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         rec["grad_all_reduce_ms"] = [e0.elapsed_time(e1) for e0, e1, _ in events]
         rec["grad_buckets"] = [n for _, _, n in events]
+        rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in model.net.parameters())
+        rec["optimizer_bytes"] = sum(
+            v.numel() * v.element_size()
+            for st in step.state.optimizer.optimizer.state.values()
+            for v in st.values() if torch.is_tensor(v))
         out.update(rec)
         if kind == "fp32":
             out["state"] = {k: v.detach().cpu() for k, v in
-                            model.net.state_dict().items()}
-            out["grads"] = {k: p.grad.detach().cpu() for k, p in
-                            model.net.named_parameters()}
+                            tp.whole_state_dict(model.net).items()}
+            params = dict(model.net.named_parameters())
+            cut = [k for k, p in params.items() if tp.shard_of(p) is not None]
+            grads = {k: p.grad.detach() for k, p in params.items()}
+            if cut:
+                grads.update(zip(cut, tp.gather_whole(
+                    [(grads[k], params[k].tp) for k in cut])))
+            out["grads"] = {k: g.cpu() for k, g in grads.items()}
     if mesh is not None:
         out["kernels_vs_plain"] = dp_kernels_vs_plain(heads_seen, shifts_seen)
     del model, step, batch
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def dp_weights(kind, dev, tmp: Path, rows=BATCH) -> dict:
+    """The weights of :func:`dp_config`'s ``kind`` from seed 0, their score
+    convs tempered on the first ``rows`` rows of the synthetic batch in
+    train mode (``weights``) and, for fp32, in eval mode first
+    (``eval_weights``); each saved as ``<kind>_<name>.pt`` under ``tmp``
+    for the ranks.  The card is freed after."""
+    from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+
+    batch = {k: v[:rows] for k, v in synthetic_batch(dev).items()}
+    cfg = dp_config(kind)
+    model = build_pose_model(cfg.model, device=dev, seed=0)
+    with torch.no_grad():
+        images = preprocess_batch(
+            batch["canvases"], batch["coords_px"], batch["mask"],
+            batch["head_length"], batch["canvas_from_orig"], cfg.data,
+            model.input_size, canvas_margin=batch["canvas_margin"])["images"]
+    weights = {}
+    tempers = (("eval_weights", False),) if kind == "fp32" else ()
+    for name, train in (*tempers, ("weights", True)):
+        temper_scores(model.net, images, train=train)
+        weights[name] = {k: v.detach().cpu().clone()
+                         for k, v in model.net.state_dict().items()}
+        torch.save(weights[name], tmp / f"{kind}_{name}.pt")
+    del model, images, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return weights
 
 
 def dp_kernels_vs_plain(heads_seen, shifts_seen) -> dict:
@@ -2837,9 +2933,6 @@ def phase_dp(dev, card):
     import socket
     import tempfile
 
-    from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
-    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
-
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
@@ -2849,27 +2942,7 @@ def phase_dp(dev, card):
         emit("dp_nccl_world_size_1", card=card, **nccl)
 
         # The tempered weights first, in this process; then it frees the card.
-        batch = synthetic_batch(dev)
-        weights = {}
-        for kind in ("bf16", "fp32"):
-            cfg = dp_config(kind)
-            model = build_pose_model(cfg.model, device=dev, seed=0)
-            with torch.no_grad():
-                images = preprocess_batch(
-                    batch["canvases"], batch["coords_px"], batch["mask"],
-                    batch["head_length"], batch["canvas_from_orig"], cfg.data,
-                    model.input_size, canvas_margin=batch["canvas_margin"])["images"]
-            weights[kind] = {}
-            tempers = (("eval_weights", False),) if kind == "fp32" else ()
-            for name, train in (*tempers, ("weights", True)):
-                temper_scores(model.net, images, train=train)
-                weights[kind][name] = {k: v.detach().cpu().clone()
-                                       for k, v in model.net.state_dict().items()}
-                torch.save(weights[kind][name], tmp / f"{kind}_{name}.pt")
-            del model, images
-        del batch
-        gc.collect()
-        torch.cuda.empty_cache()
+        weights = {kind: dp_weights(kind, dev, tmp) for kind in ("bf16", "fp32")}
 
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
@@ -2973,6 +3046,198 @@ def phase_dp(dev, card):
     return {"launches": launches, "errs": errs}
 
 
+# -- tp: tensor parallelism --------------------------------------------------
+
+TP_RANKS = 2               # one model group: data 1 x model 2
+# The global batch, cut from BATCH: both ranks take all of its rows, and
+# under gloo every conv's output crosses the host twice a step (its gather
+# forward, its input gradient's sum backward): at 8 rows one 256 x 64 x 64
+# fp32 map is 33.5 MB, and the hg2 step carries about 2 GB each way.
+TP_BATCH = 8
+TP_VAL_ROWS = 12           # two batches of 8: the second ends in 4 pad rows
+TP_WITNESSES = {"reversed_rows": np.arange(TP_BATCH)[::-1].copy(),
+                "permuted_rows": np.random.default_rng(1).permutation(TP_BATCH),
+                "permuted_rows_2": np.random.default_rng(2).permutation(TP_BATCH)}
+TP_TIMEOUT_S = 300
+
+
+def tp_rank_main(work: str):
+    """One rank of the tp phase (``chip_smoke.py --tp-rank <dir>``, under
+    the launcher's variables): both ranks on cuda:0 over gloo, one model
+    group of TP_RANKS."""
+    from dsnt_pose2d_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(DP_RANK_DEVICE)
+    pmesh.initialize_distributed(dev, backend="gloo")
+    mesh = pmesh.make_mesh(TP_RANKS, device=dev)
+    assert mesh.shape == {"data": 1, "model": TP_RANKS}, mesh.shape
+    assert torch.distributed.get_backend() == "gloo"
+    try:
+        sds = {w: torch.load(Path(work) / f"fp32_{w}.pt", weights_only=True)
+               for w in ("weights", "eval_weights")}
+        out = dp_drive("fp32", dp_config("fp32"), sds["weights"], dev, mesh,
+                       eval_state_dict=sds["eval_weights"],
+                       global_batch=TP_BATCH, val_rows=TP_VAL_ROWS)
+        torch.save(out, Path(work) / f"tp_rank{mesh.rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_local_shapes(cfg, rank) -> dict:
+    """Each parameter's shape on model rank ``rank`` of TP_RANKS, from the
+    JAX package's rule over the whole model's flax leaves."""
+    from dsnt_pose2d_tpu_torch.models.factory import PoseNet
+    from dsnt_pose2d_tpu_torch.parallel import tp
+
+    with torch.device("meta"):
+        net = PoseNet(cfg.model)
+    return {k: tp.Shard(lay, rank, TP_RANKS).local_shape
+            if tp.sharded(lay.flax_shape, TP_RANKS) else lay.shape
+            for k, lay in tp.leaf_layouts(net).items()}
+
+
+def tp_reckoned_bytes(cfg, rows) -> dict:
+    """The bytes a train step's model-axis all-reduces carry, from the
+    shapes alone (a meta-device forward of the whole model on ``rows``
+    rows): each conv's output (its gather) and each conv's input but the
+    stem's (its gradient's sum; the images need none)."""
+    from dsnt_pose2d_tpu_torch.models.factory import PoseNet
+
+    with torch.device("meta"):
+        net = PoseNet(cfg.model)
+    stem, tot = net.backbone.stem_conv, {"gathers": 0, "input_grad_sums": 0}
+
+    def hook(mod, inp, out):
+        tot["gathers"] += out.numel() * out.element_size()
+        if mod is not stem:
+            tot["input_grad_sums"] += inp[0].numel() * inp[0].element_size()
+
+    for mod in net.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            mod.register_forward_hook(hook)
+    side = cfg.model.resolved_input_size
+    net.train()(torch.zeros(rows, side, side, 3, device="meta"))
+    return tot
+
+
+def phase_tp(dev, card):
+    """Tensor parallelism on the card: 2 ranks on the one card over gloo at
+    model_parallel 2 (fp32 hg2 at the flagship's widths, TF32 off): the
+    eval pass and ``predict`` over TP_VAL_ROWS rows, then one train step on
+    TP_BATCH rows; each rank's shard shapes, its kernel calls against
+    their plain versions, its replicated leaves bitwise equal to the other
+    rank's, and the step held against one process's step on the same batch
+    from the same state, relative to the witnesses of TP_WITNESSES."""
+    import socket
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dp_config("fp32")
+    with tempfile.TemporaryDirectory(prefix="dsnt_tp_") as tmp:
+        tmp = Path(tmp)
+        sds = dp_weights("fp32", dev, tmp, rows=TP_BATCH)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [dp_launch(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(tmp)],
+            {**_plain_env(), "WORLD_SIZE": str(TP_RANKS), "RANK": str(r),
+             "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port)}) for r in range(TP_RANKS)]
+        dp_wait(procs, TP_TIMEOUT_S)
+        ranks_wall = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False)
+                 for r in range(TP_RANKS)]
+
+    t_one = time.perf_counter()
+    kw = dict(global_batch=TP_BATCH, val_rows=TP_VAL_ROWS)
+    one = dp_drive("fp32", cfg, sds["weights"], dev,
+                   eval_state_dict=sds["eval_weights"], **kw)
+    witnesses = {name: dp_readings("fp32", dp_drive("fp32", cfg, sds["weights"],
+                                                    dev, order=order, **kw), one)
+                 for name, order in TP_WITNESSES.items()}
+    one_s = time.perf_counter() - t_one
+
+    a, b = ranks
+    errs = {}
+    for r, rank in enumerate(ranks):
+        want = tp_local_shapes(cfg, r)
+        if rank["shapes"] != want:
+            bad = {k: (rank["shapes"].get(k), v) for k, v in want.items()
+                   if rank["shapes"].get(k) != v}
+            raise AssertionError(f"tp rank {r} shard shapes (got, want): {bad}")
+        launches = {k: rank["launches"].get(k, 0)
+                    for k in ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift")}
+        if launches != {"dsnt_head_fwd": 1, "dsnt_head_bwd": 1, "row_shift": 2}:
+            raise AssertionError(f"tp rank {r} launches {rank['launches']}")
+        if rank["collectives"][0] != {"all_reduce": rank["model_collectives"][0]
+                                      ["counts"]["all_reduce"], "broadcast": 1}:
+            raise AssertionError(f"tp rank {r} collectives off the model axis: "
+                                 f"{rank['collectives']} {rank['model_collectives']}")
+        for k, err in rank["kernels_vs_plain"]["max_abs_err"].items():
+            errs[k] = max(errs.get(k, 0.0), err)
+    if a["replicated_digests"] != b["replicated_digests"]:
+        raise AssertionError("tp: the ranks' replicated leaves differ")
+    if any(not torch.equal(a["state"][k], b["state"][k]) for k in a["state"]):
+        raise AssertionError("tp: the ranks' gathered states differ")
+    sharded = sum(a["shapes"][k] != one["shapes"][k] for k in one["shapes"])
+    readings = dp_readings("fp32", a, one)
+    report = {
+        **readings,
+        "loss_one_process": one["metrics"][0]["loss"],
+        "loss_ranks": a["metrics"][0]["loss"],
+        "replicated_leaves_bitwise_equal": True,
+        "sharded_leaves": sharded, "leaves": len(one["shapes"]),
+        "kernels_vs_plain": a["kernels_vs_plain"],
+        "collectives_per_step": a["collectives"][0],
+        "model_axis_per_step": a["model_collectives"][0],
+        "rank_step_ms": {r["rank"]: r["step_ms"] for r in ranks},
+        "one_process_step_ms": one["step_ms"],
+        "bytes_held": {
+            "t1_one_process": {"params": one["param_bytes"],
+                               "optimizer": one["optimizer_bytes"]},
+            **{f"t2_rank{r['rank']}": {"params": r["param_bytes"],
+                                       "optimizer": r["optimizer_bytes"]}
+               for r in ranks}},
+        "peak_mem_bytes": {"one_process": one["peak_mem_bytes"],
+                           **{f"rank{r['rank']}": r["peak_mem_bytes"] for r in ranks}}}
+    pred_err = float(np.abs(a["pred_orig"] - one["pred_orig"]).max())
+    report.update(eval_loss_rel=_rel(a["eval"]["loss"], one["eval"]["loss"]),
+                  pred_orig_max_err_px=pred_err, val_rows=TP_VAL_ROWS,
+                  pckh_total=sum(one["eval"]["total"]))
+    try:
+        held = dp_hold("fp32", readings, witnesses)
+    except AssertionError:
+        emit("tp", card=card, failed="fp32", witnesses=witnesses, **report)
+        raise
+    emit("tp", card=card, ranks=TP_RANKS, mesh={"data": 1, "model": TP_RANKS},
+         backend="gloo (both ranks on cuda:0)",
+         note="gloo stages CUDA tensors through the host: these times are no "
+              "measure of NCCL across cards",
+         cut={"global_batch": TP_BATCH, "from": BATCH,
+              "depth": DP_FP32_MODEL["base"]},
+         reckoned_model_axis_bytes=tp_reckoned_bytes(cfg, TP_BATCH),
+         ranks_wall_s=ranks_wall, one_process_and_witnesses_wall_s=one_s,
+         wall_s=time.perf_counter() - t_phase, tolerance=DP_TOL["fp32"],
+         witness_factor=DP_WITNESS_FACTOR, held=held,
+         kernels_vs_plain_max_err=errs, **report)
+    for r in ranks:
+        if r["eval"]["correct"] != one["eval"]["correct"] or \
+                r["eval"]["total"] != one["eval"]["total"]:
+            raise AssertionError(f"tp eval counts {r['eval']} != {one['eval']}")
+    if not np.array_equal(a["pred_orig"], b["pred_orig"]) \
+            or pred_err > DP_TOL["pred_orig_px"]:
+        raise AssertionError(f"tp predict: max err {pred_err} px")
+    launches = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return {"launches": launches, "errs": errs}
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -3019,13 +3284,14 @@ def main():
     # Its profiler runs in a process of its own, after every phase that
     # times or profiles.
     phase_telemetry(dev, card)
-    # Last: its ranks and CLI runs are processes of their own.
+    # Last: their ranks and CLI runs are processes of their own.
     dp = phase_dp(dev, card)
+    tp = phase_tp(dev, card)
     paths = {"serve": serve_launches, "train": train_launches,
              "bench": bench_launches, "trainer": trainer_launches,
              "cli": cli_launches, "resnet": resnet["launches"],
              "heads": heads_launches, "vit": vit["launches"],
-             "remat": remat_launches, "dp": dp["launches"]}
+             "remat": remat_launches, "dp": dp["launches"], "tp": tp["launches"]}
 
     def launches(name):
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -3047,7 +3313,8 @@ def main():
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:184",
          **launches("dsnt_head_fwd"),
          "max_abs_err": max(head["max_abs_err"], resnet["fwd"]["max_abs_err"],
-                            vit["fwd"]["max_abs_err"], dp["errs"]["dsnt_head_fwd"]),
+                            vit["fwd"]["max_abs_err"], dp["errs"]["dsnt_head_fwd"],
+                            tp["errs"]["dsnt_head_fwd"]),
          **{k: head[k] for k in keys},
          "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"]),
          "at_56x56": at_56(resnet["fwd"]), "at_56x56_vit": at_56(vit["fwd"])},
@@ -3056,7 +3323,8 @@ def main():
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
          **launches("dsnt_head_bwd"),
          "max_abs_err": max(bwd["max_abs_err"], resnet["bwd"]["max_abs_err"],
-                            vit["bwd"]["max_abs_err"], dp["errs"]["dsnt_head_bwd"]),
+                            vit["bwd"]["max_abs_err"], dp["errs"]["dsnt_head_bwd"],
+                            tp["errs"]["dsnt_head_bwd"]),
          **{k: bwd[k] for k in keys}, "layout": bwd["layout"],
          "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"]),
          "at_56x56": at_56(resnet["bwd"]), "at_56x56_vit": at_56(vit["bwd"])},
@@ -3098,6 +3366,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--dp-cli"]:
         dp_cli_main(sys.argv[2:])
     else:

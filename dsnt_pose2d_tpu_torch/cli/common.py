@@ -133,8 +133,8 @@ def add_train_args(p: argparse.ArgumentParser):
     g.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="optimizer steps per dispatch group (resident input)")
     g.add_argument("--model-parallel", type=int, default=1,
-                   help="tensor-parallel width (1 = one device; >1 is not "
-                        "ported yet)")
+                   help="tensor-parallel width: size of the mesh's 'model' "
+                        "axis (ranks = data x model; 1 = pure DP)")
 
 
 def config_from_args(args) -> Config:
@@ -357,10 +357,11 @@ def dataset_split_method(ds) -> str:
 
 def make_loaders(cfg: Config, train_ds, val_ds, mesh=None):
     """The train loader (shuffled, seeded) and the val loader (in order,
-    every row once: the stream padded with masked rows), each this rank's
-    host split of ``mesh`` (one host without one); ``cfg.train.batch_size``
+    every row once: the stream padded with masked rows), each the host
+    split of this rank's data index on ``mesh`` (one host without one: the
+    ranks of a model group read the same rows); ``cfg.train.batch_size``
     is the global batch."""
-    nh, hid = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
+    nh, hid = (mesh.data_size, mesh.data_index) if mesh is not None else (1, 0)
     workers = getattr(cfg.data, "workers", 1)
     train_loader = ShardedLoader(
         train_ds, cfg.train.batch_size, shuffle=True, seed=cfg.train.seed,

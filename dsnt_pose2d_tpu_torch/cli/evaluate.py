@@ -8,6 +8,10 @@ split's provenance and the val loss.
 On N cards (each rank scores its share of the split; rank 0 prints):
 
     torchrun --nproc_per_node=N -m dsnt_pose2d_tpu_torch.cli.evaluate ...
+
+The mesh's model axis is the run's ``train.model_parallel`` (config.json),
+as the JAX CLI reads it.  The checkpoint is whole, so it scores at any
+width that divides N: set the field in config.json to change it.
 """
 
 from __future__ import annotations
@@ -43,17 +47,18 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    with start_distributed(args.device) as mesh:
-        return _evaluate(args, p, argv, mesh)
-
-
-def _evaluate(args, p, argv, mesh):
-    device = mesh.device
     ckpt = CheckpointManager(args.model_dir)
     cfg = ckpt.load_config()
     if cfg is None:
         raise SystemExit(f"no config.json in {args.model_dir}")
     cfg = merge_cli_overrides(cfg, args, p, argv)
+    # The run's model-parallel width, as the JAX CLIs read it.
+    with start_distributed(args.device, cfg.train.model_parallel) as mesh:
+        return _evaluate(args, cfg, ckpt, mesh)
+
+
+def _evaluate(args, cfg, ckpt, mesh):
+    device = mesh.device
 
     model = build_pose_model(cfg.model, device=device)
     _, val_ds = make_datasets(cfg)

@@ -10,6 +10,9 @@ shape (N, 16, 2), in an HDF5 file (``h5py``) or a ``.mat`` file
 On N cards (each rank predicts its share; rank 0 writes the file):
 
     torchrun --nproc_per_node=N -m dsnt_pose2d_tpu_torch.cli.infer ...
+
+The mesh's model axis is the run's ``train.model_parallel`` (config.json),
+as in :mod:`.evaluate`.
 """
 
 from __future__ import annotations
@@ -46,17 +49,18 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    with start_distributed(args.device) as mesh:
-        return _infer(args, p, argv, mesh)
-
-
-def _infer(args, p, argv, mesh):
-    device = mesh.device
     ckpt = CheckpointManager(args.model_dir)
     cfg = ckpt.load_config()
     if cfg is None:
         raise SystemExit(f"no config.json in {args.model_dir}")
     cfg = merge_cli_overrides(cfg, args, p, argv)
+    # The run's model-parallel width, as the JAX CLIs read it.
+    with start_distributed(args.device, cfg.train.model_parallel) as mesh:
+        return _infer(args, cfg, ckpt, mesh)
+
+
+def _infer(args, cfg, ckpt, mesh):
+    device = mesh.device
 
     model = build_pose_model(cfg.model, device=device)
     if args.subset == "test":

@@ -11,6 +11,14 @@ batch; each rank trains ``1/N`` of it):
 
     torchrun --nproc_per_node=N -m dsnt_pose2d_tpu_torch.cli.train ...
 
+``--model-parallel t`` (or a config's ``train.model_parallel``) lays the N
+ranks out as ``(N / t, t)`` as ``(data, model)`` and shards the model's
+kernels over the ``t`` ranks of each model group (:mod:`..parallel.tp`);
+on the CPU, two ranks over gloo:
+
+    torchrun --nproc_per_node=2 -m dsnt_pose2d_tpu_torch.cli.train \
+        --device cpu --model-parallel 2 ...
+
 ``--config configs/vit_s16_dsnt_2x.json`` runs a config file (the flags
 given beside it override its fields).  ``--device cpu`` runs it on the
 host (over gloo under a launcher).  ``--dashboard-port`` serves the
@@ -18,8 +26,7 @@ live dashboard (:mod:`..train.dashboard`) while the run lasts,
 ``--profile-dir`` writes a ``torch.profiler`` trace of the second epoch
 (:mod:`..train.profiling`), both from rank 0, and ``--debug-nans`` stops
 at the first NaN (:func:`..train.loop.set_debug_nans`, process-wide as
-JAX's ``jax_debug_nans``).  ``--model-parallel`` > 1 is not ported yet
-and raises ``NotImplementedError``.
+JAX's ``jax_debug_nans``).
 """
 
 from __future__ import annotations
@@ -75,37 +82,31 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args):
-    """Raise for the flags whose machinery is not ported yet, naming the
-    ROADMAP item that brings it."""
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: tensor parallelism "
-            "(parallel/tp.py) is not ported yet (ROADMAP Queue 1, Data parallel: "
-            "item 8, Tensor parallel)")
+def run_config(args, parser, argv):
+    """The run's config: ``--config``'s file with the given flags over its
+    fields, else the flags'."""
+    if not args.config:
+        return config_from_args(args)
+    with open(args.config) as f:
+        cfg = config_with_flags(config_from_json(f.read()), args, parser, argv)
+    # A preset without the field reads as model_version 0 (a checkpoint of
+    # an older graph); this run builds the current graph.
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, model_version=MODEL_VERSION))
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args)
-    with start_distributed(args.device, args.model_parallel) as mesh:
-        return _train(args, parser, argv, mesh)
+    cfg = run_config(args, parser, argv)
+    with start_distributed(args.device, cfg.train.model_parallel) as mesh:
+        return _train(args, cfg, mesh)
 
 
-def _train(args, parser, argv, mesh):
+def _train(args, cfg, mesh):
     device = mesh.device
     if args.debug_nans:
         set_debug_nans(True)
-    if args.config:
-        with open(args.config) as f:
-            cfg = config_with_flags(config_from_json(f.read()), args, parser, argv)
-        # A preset without the field reads as model_version 0 (a checkpoint
-        # of an older graph); this run builds the current graph.
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, model_version=MODEL_VERSION))
-    else:
-        cfg = config_from_args(args)
     model = build_pose_model(cfg.model, device=device, seed=cfg.train.seed)
     out_dir = experiment_dir(cfg)
 
@@ -113,7 +114,9 @@ def _train(args, parser, argv, mesh):
     train_loader, val_loader = make_loaders(cfg, train_ds, val_ds, mesh)
     if mesh.group is not None and mesh.rank == 0:
         print(f"distributed: backend={dist.get_backend()} "
-              f"world_size={mesh.world_size} device={device}", flush=True)
+              f"world_size={mesh.world_size} device={device}"
+              + (f" model_parallel={mesh.model_parallel}"
+                 if mesh.model_parallel > 1 else ""), flush=True)
 
     ckpt = CheckpointManager(out_dir, cfg, max_to_keep=cfg.train.keep_checkpoints)
     # Rank 0 writes the metric records (the JAX package's process 0).

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import tp
 from ..utils.config import ModelConfig
 from .heads import PoseOutput, decode_coords, pose_loss
 from .hourglass import HourglassNet
@@ -79,8 +80,13 @@ class PoseNet(nn.Module):
         # The flat maps in fp32, as the JAX package takes them (an fp64
         # model's too), then in the head's own dtype.
         flat = raw.reshape(s, b, j, h * w).float().to(self.fc_head_kernel.dtype)
-        fc = torch.einsum("sbjp,jpc->sbjc", flat, self.fc_head_kernel)
-        return PoseOutput(raw, fc + self.fc_head_bias)
+        if tp.shard_of(self.fc_head_kernel) is None:
+            fc = torch.einsum("sbjp,jpc->sbjc", flat, self.fc_head_kernel)
+            return PoseOutput(raw, fc + self.fc_head_bias)
+        # Column-parallel: kernel and bias are sharded on the coordinate.
+        fc = torch.einsum("sbjp,jpc->sbjc", tp.copy_to_model(flat),
+                          self.fc_head_kernel) + self.fc_head_bias
+        return PoseOutput(raw, tp.gather_features(fc, -1))
 
 
 @dataclass(frozen=True)

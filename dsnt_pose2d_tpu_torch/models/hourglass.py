@@ -10,7 +10,9 @@ other dtype runs as it is (``HourglassNet(dtype=torch.float64).double()``
 is the fp64 model of the parity tests).  :class:`BatchNorm` follows the
 module's ``training`` flag, as flax's ``train`` argument.  With
 ``remat=True`` each hourglass stack runs under :func:`remat` in training,
-as the JAX package's ``nn.remat(Hourglass)``.
+as the JAX package's ``nn.remat(Hourglass)``.  The convs are
+:class:`Conv2d`: column-parallel over the mesh's model axis once
+:func:`..parallel.tp.shard_model_` has sharded their kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..parallel.mesh import all_reduce_sum, world_size
+from ..parallel import tp
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_size
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9     # flax's convention: the weight of the old statistic
@@ -76,11 +79,13 @@ class BatchNorm(nn.BatchNorm2d):
     recomputes the forward in the backward pass, the running statistics do
     not move again.
 
-    Under a process group of size W > 1 the batch statistics are those of
+    Over a data axis of D > 1 ranks the batch statistics are those of
     the global batch (the JAX package's BN under a ``data`` mesh): the
-    per-channel sums of x and x^2 are summed over ranks by a differentiable
-    all-reduce, whose backward sums the gradient over ranks again.  A remat
-    recompute issues the all-reduce again, in the same order on every rank.
+    per-channel sums of x and x^2 are summed over the data group by a
+    differentiable all-reduce, whose backward sums the gradient there
+    again.  The ranks of a model group hold the same whole activations and
+    take no part in it.  A remat recompute issues the all-reduce again, in
+    the same order on every rank.
     """
 
     def __init__(self, ch: int):
@@ -91,14 +96,15 @@ class BatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
-        ranks = world_size()
+        ranks = axis_size(DATA_AXIS)
         if ranks > 1:
             # Global-batch statistics: one differentiable all-reduce of the
-            # per-channel [sum x, sum x^2]; every rank holds a batch of the
-            # same shape, so the global count is the local one times W.
+            # per-channel [sum x, sum x^2]; every data rank holds a batch of
+            # the same shape, so the global count is the local one times D.
             n = xf.numel() // xf.shape[1] * ranks
             sums = all_reduce_sum(torch.cat([xf.sum(dim=dims),
-                                             (xf * xf).sum(dim=dims)]))
+                                             (xf * xf).sum(dim=dims)]),
+                                  DATA_AXIS)
             mean, mean2 = (sums / n).chunk(2)
         else:
             mean = xf.mean(dim=dims)
@@ -118,6 +124,14 @@ class BatchNorm(nn.BatchNorm2d):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d``, column-parallel when its kernel is sharded
+    (:func:`..parallel.tp.conv2d`)."""
+
+    def forward(self, x):
+        return tp.conv2d(self, x, self.weight, self.bias)
+
+
 def _bn(ch: int) -> BatchNorm:
     return BatchNorm(ch)
 
@@ -133,12 +147,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_ch = 2 * planes
         self.bn1 = _bn(in_ch)
-        self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, planes, 1, bias=False)
         self.bn2 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
         self.bn3 = _bn(planes)
-        self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
-        self.proj = (nn.Conv2d(in_ch, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(planes, out_ch, 1, bias=False)
+        self.proj = (Conv2d(in_ch, out_ch, 1, bias=False)
                      if in_ch != out_ch else None)
 
     def forward(self, x):
@@ -192,7 +206,7 @@ class HourglassNet(nn.Module):
         planes = features // 2
         # Symmetric (3, 3) stem padding: the torch/Newell convention the JAX
         # package pins explicitly (MODEL_VERSION 2).
-        self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.stem_conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.stem_bn = _bn(64)
         self.stem_res1 = Bottleneck(64, 64)
         self.stem_res2 = Bottleneck(128, planes)
@@ -200,14 +214,14 @@ class HourglassNet(nn.Module):
         for i in range(num_stacks):
             self.add_module(f"hg{i}", Hourglass(depth, features))
             self.add_module(f"post_res{i}", Bottleneck(features, planes))
-            self.add_module(f"fc{i}_conv", nn.Conv2d(features, features, 1,
-                                                      bias=False))
+            self.add_module(f"fc{i}_conv", Conv2d(features, features, 1,
+                                                   bias=False))
             self.add_module(f"fc{i}_bn", _bn(features))
-            self.add_module(f"score{i}", nn.Conv2d(features, num_joints, 1))
+            self.add_module(f"score{i}", Conv2d(features, num_joints, 1))
             if i < num_stacks - 1:
-                self.add_module(f"fc_back{i}", nn.Conv2d(features, features, 1))
+                self.add_module(f"fc_back{i}", Conv2d(features, features, 1))
                 self.add_module(f"score_back{i}",
-                                nn.Conv2d(num_joints, features, 1))
+                                Conv2d(num_joints, features, 1))
 
     def output_side(self, side: int) -> int:
         """Side of the score maps for a square input of ``side`` px (the

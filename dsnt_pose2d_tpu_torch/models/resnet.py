@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .hourglass import _AUTOCAST_DTYPES, BatchNorm
+from .hourglass import _AUTOCAST_DTYPES, BatchNorm, Conv2d
 
 # (block, per-stage depths); stage s has 64 * 2^s planes (x4 out for bottleneck).
 RESNET_SPECS = {
@@ -39,8 +39,8 @@ RESNET_SPECS = {
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
           dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, dilation=dilation,
-                     padding=dilation * (k // 2), bias=False)
+    return Conv2d(cin, cout, k, stride=stride, dilation=dilation,
+                  padding=dilation * (k // 2), bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -126,7 +126,7 @@ class ResNetPose(nn.Module):
         kind, _ = RESNET_SPECS[arch]
         block = BasicBlock if kind == "basic" else BottleneckBlock
         self.dtype = dtype
-        self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.stem_conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.stem_bn = BatchNorm(64)
         self.plan = stage_plan(arch, dilate, truncate)
         in_ch = 64
@@ -134,7 +134,7 @@ class ResNetPose(nn.Module):
             self.add_module(f"stage{stage}_block{b}",
                             block(in_ch, planes, stride, dilation))
             in_ch = planes * block.expansion
-        self.score = nn.Conv2d(in_ch, num_joints, 1)
+        self.score = Conv2d(in_ch, num_joints, 1)
 
     def output_side(self, side: int) -> int:
         """Side of the score maps for a square input of ``side`` px: the

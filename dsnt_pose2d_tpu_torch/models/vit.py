@@ -23,7 +23,11 @@ torch.float64`` and ``.double()``) keeps fp64 in its LayerNorms and softmax
 pins them to fp32.
 
 ``remat=True`` recomputes each block's activations in the backward pass
-(:func:`.hourglass.remat`) in training with grad enabled.
+(:func:`.hourglass.remat`) in training with grad enabled.  The convs and
+denses are column-parallel over the mesh's model axis once
+:func:`..parallel.tp.shard_model_` has sharded their kernels; the patch
+conv then adds this rank's share of the position embeddings before its
+features are gathered.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import strict_fp32
+from ..parallel import tp
 from .hourglass import remat as _remat
 
 _LN_EPS = 1e-6      # flax's LayerNorm default (torch's is 1e-5)
@@ -68,18 +73,18 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Linear):
     """flax ``Dense(dtype=x.dtype)``: the parameters cast to the input's
-    dtype."""
+    dtype (:func:`..parallel.tp.linear`)."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return tp.linear(self, x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class Conv(nn.Conv2d):
     """flax ``Conv(dtype=x.dtype)`` over NCHW: the parameters cast to the
-    input's dtype."""
+    input's dtype (:func:`..parallel.tp.conv2d`)."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return tp.conv2d(self, x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def attention(q, k, v):
@@ -103,7 +108,10 @@ class ViTBlock(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.ln1 = LayerNorm(dim)
-        self.qkv = Dense(dim, 3 * dim)     # flax (D, 3, H, hd) DenseGeneral
+        self.qkv = Dense(dim, 3 * dim)
+        # flax's (D, 3, H, hd) DenseGeneral: its output features, for the
+        # tensor-parallel layout (parallel.tp.leaf_layouts).
+        self.qkv.flax_features = (3, num_heads, dim // num_heads)
         self.proj = Dense(dim, dim)
         self.ln2 = LayerNorm(dim)
         self.fc1 = Dense(dim, mlp_ratio * dim)
@@ -166,9 +174,18 @@ class ViTPose(nn.Module):
             raise ValueError(f"input {size} gives a {g}-patch grid, the position "
                              f"embeddings are for {self.pos_row.shape[0]}")
         dt = self.dtype
-        x = self.patch_embed(images.permute(0, 3, 1, 2).to(dt))
-        x = x.permute(0, 2, 3, 1)                              # (B, g, g, D)
-        x = x + (self.pos_row[:, None, :] + self.pos_col[None, :, :]).to(dt)
+        x = images.permute(0, 3, 1, 2).to(dt)
+        pos = (self.pos_row[:, None, :] + self.pos_col[None, :, :]).to(dt)
+        pe = self.patch_embed
+        if tp.shard_of(pe.weight) is None:
+            x = pe(x).permute(0, 2, 3, 1) + pos                # (B, g, g, D)
+        else:
+            # Column-parallel (the position embeddings are sharded on D with
+            # the patch kernel): this rank's features plus its share of the
+            # embeddings, gathered, then the whole bias.
+            x = pe._conv_forward(tp.copy_to_model(x), pe.weight.to(dt), None)
+            x = tp.gather_features(x.permute(0, 2, 3, 1) + pos, -1)
+            x = x + pe.bias.to(dt)
         x = x.reshape(b, g * g, self.dim)
         checkpointed = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.depth):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.mesh import all_reduce_sum_
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum_
 from .coords import normalized_linspace
 from .gauss import make_gauss
 
@@ -90,12 +90,12 @@ REGULARIZERS = {
 
 def visible_count(mask: torch.Tensor) -> torch.Tensor:
     """The masked mean's denominator: the visible joints of the GLOBAL
-    batch, at least 1.  Under a process group of size > 1 the local count
-    is summed over ranks (one all-reduce, outside autograd), so every
-    rank's masked mean is its share of the global batch's mean, as the JAX
-    package's ``average_loss`` on a ``data`` mesh."""
+    batch, at least 1.  Over a data axis of more than one rank the local
+    count is summed over the data group (one all-reduce, outside autograd),
+    so every data rank's masked mean is its share of the global batch's
+    mean, as the JAX package's ``average_loss`` on a ``data`` mesh."""
     count = mask.sum().detach()
-    return all_reduce_sum_(count).clamp_min(1.0)
+    return all_reduce_sum_(count, DATA_AXIS).clamp_min(1.0)
 
 
 def average_loss(losses: torch.Tensor, mask: torch.Tensor | None = None,

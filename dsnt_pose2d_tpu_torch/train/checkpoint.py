@@ -23,8 +23,13 @@ the steps that hold that state train on from it.
 
 Under data parallelism every rank calls the saves: rank 0 writes (the
 replicas are equal), then all ranks meet at a barrier, so that no rank
-reads or lists a checkpoint before it is in place.  Every rank restores
-the same file.
+reads or lists a checkpoint before it is in place.  Under tensor
+parallelism a checkpoint stays whole, as a one-process run writes it: the
+model group of data index 0 gathers its shards of the parameters and of
+their optimizer state (:func:`..parallel.tp.whole_state_dict`,
+:func:`..parallel.tp.whole_optimizer_state`) and rank 0 writes.  Every
+rank restores the same file, each sharded parameter taking its shard, so a
+checkpoint restores at any model-parallel width, bitwise.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ import warnings
 
 import torch
 
-from ..parallel.mesh import barrier, is_main_process
+from ..parallel import tp
+from ..parallel.mesh import DATA_AXIS, axis_index, barrier, is_main_process
 from ..utils.config import MODEL_VERSION, Config, config_from_json, config_to_json
 
 CONFIG_FILENAME = "config.json"
@@ -58,20 +64,31 @@ def _to_cpu(obj):
 
 
 def state_payload(state) -> dict:
-    """What a checkpoint stores of a :class:`.state.TrainState`, on the host."""
-    return _to_cpu({"model": state.model.net.state_dict(),
-                    "optimizer": state.optimizer.optimizer.state_dict(),
+    """What a checkpoint stores of a :class:`.state.TrainState`, whole, on
+    the host (a collective over the model group when the model is
+    sharded: every rank of it calls this)."""
+    return _to_cpu({"model": tp.whole_state_dict(state.model.net),
+                    "optimizer": tp.whole_optimizer_state(
+                        state.optimizer.optimizer),
                     "count": state.optimizer.count,
                     "step": state.step, "seed": state.seed})
 
 
 def load_payload_(state, payload: dict):
-    """Load a :func:`state_payload` into ``state`` in place."""
-    state.model.net.load_state_dict(payload["model"], strict=True)
-    state.optimizer.optimizer.load_state_dict(payload["optimizer"])
+    """Load a :func:`state_payload` into ``state`` in place, each sharded
+    parameter and its optimizer state taking this rank's shard."""
+    tp.load_whole_state_dict_(state.model.net, payload["model"])
+    opt = state.optimizer.optimizer
+    opt.load_state_dict(tp.local_optimizer_state(opt, payload["optimizer"]))
     state.optimizer.count = int(payload["count"])
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
+
+
+def _gathered_payload(state) -> dict | None:
+    """:func:`state_payload` on the ranks of data index 0 (rank 0's model
+    group gathers the shards), None on the others."""
+    return state_payload(state) if axis_index(DATA_AXIS) == 0 else None
 
 
 class _Store:
@@ -136,8 +153,8 @@ class CheckpointManager:
 
     def save(self, epoch: int, state, *, is_best: bool = False,
              metrics: dict | None = None):
+        payload = _gathered_payload(state)
         if is_main_process():
-            payload = state_payload(state)
             meta = {"epoch": epoch, "step": state.step, "step_in_epoch": 0,
                     "metrics": metrics or {}}
             self.mgr.save(epoch, payload, meta)
@@ -149,8 +166,9 @@ class CheckpointManager:
 
     def save_step(self, state, *, epoch: int, step_in_epoch: int):
         """Mid-epoch save, keyed by the global step (for an exact resume)."""
+        payload = _gathered_payload(state)
         if is_main_process():
-            self.step_mgr.save(state.step, state_payload(state),
+            self.step_mgr.save(state.step, payload,
                                {"epoch": epoch, "step": state.step,
                                 "step_in_epoch": step_in_epoch, "metrics": {}})
         barrier()

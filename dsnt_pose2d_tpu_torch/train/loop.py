@@ -34,10 +34,14 @@ pixels.
 restore template, the eval pass, and ``predict`` in dataset order.
 :func:`set_debug_nans` makes every train step stop at the first NaN.
 
-Under a process group of W > 1 ranks (:mod:`..parallel.mesh`) each step
-runs on this rank's rows of the global batch and computes the global
-batch's step: the draws are the global batch's, the metrics and the eval
-counts are summed over ranks, and ``predict`` gathers every rank's rows.
+Over a mesh of W > 1 ranks (:mod:`..parallel.mesh`), ``(W / t, t)`` as
+``(data, model)``, each step runs on this data rank's rows of the global
+batch and computes the global batch's step: the draws are the global
+batch's, the metrics and the eval counts are summed over the data group,
+and ``predict`` gathers every data rank's rows.  The ``t`` ranks of a
+model group take the same rows and each holds its shards of the model
+(:mod:`..parallel.tp`); the Trainer and ``EvalDriver`` shard the model they
+are given.
 """
 
 from __future__ import annotations
@@ -59,8 +63,10 @@ from ..data.transforms import flip_permutation, invert, transform_coords
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..evaluation.pckh import PCKhEvaluator, pckh_batch_counts
 from ..models.factory import PoseModel
-from ..parallel.mesh import (all_reduce_sum_, check_row_order, is_main_process,
-                             make_mesh, rank, world_size)
+from ..parallel import tp
+from ..parallel.mesh import (DATA_AXIS, all_reduce_sum_, axis_index, axis_size,
+                             check_row_order, is_main_process, make_mesh,
+                             world_size)
 from ..utils.config import Config
 from ..utils.visualization import render_skeleton, save_png
 from .state import TrainState, create_train_state, global_norm, step_seed
@@ -107,8 +113,8 @@ def _backward_checked(loss: torch.Tensor, named_params=(),
     rank), a backward function that returns NaN (anomaly mode, in one
     process only) or a non-finite gradient among ``named_params`` raises
     ``FloatingPointError``.  The train step checks its gradients later,
-    after they are summed over ranks (:func:`_check_grads`), so that every
-    rank raises together."""
+    with their global norm (:func:`_check_grads`), so that every rank
+    raises together."""
     checked = loss if global_loss is None else global_loss
     if not torch.isfinite(checked).all():
         raise FloatingPointError(f"debug_nans: the loss is {checked.item()}")
@@ -122,26 +128,36 @@ def _backward_checked(loss: torch.Tensor, named_params=(),
     _check_grads(named_params)
 
 
-def _check_grads(named_params):
+def _check_grads(named_params, norm: torch.Tensor | None = None):
     """Raise ``FloatingPointError`` at the first non-finite gradient (under
-    :func:`set_debug_nans`, after the gradients are summed over ranks)."""
+    :func:`set_debug_nans`), given their global ``norm`` (after the sums
+    over ranks: the same on every rank; of these gradients if None).  A
+    non-finite norm whose bad gradient is a shard of another model rank's
+    raises too, naming none."""
     named = [(n, p.grad) for n, p in named_params if p.grad is not None]
-    if named and not torch.isfinite(global_norm([g for _, g in named])):
-        bad = next(n for n, g in named if not torch.isfinite(g).all())
+    if not named:
+        return
+    if norm is None:
+        norm = global_norm([g for _, g in named])
+    if not torch.isfinite(norm):
+        bad = next((n for n, g in named if not torch.isfinite(g).all()), None)
+        if bad is None:
+            raise FloatingPointError(
+                "debug_nans: a gradient shard of another model rank is not finite")
         raise FloatingPointError(f"debug_nans: the gradient of {bad} is not finite")
 
 
 def _sum_over_ranks(values: dict) -> dict:
-    """Each tensor of ``values`` summed over ranks, outside autograd, in ONE
-    all-reduce (a flat vector of their common dtype); the tensors as they
-    are without a group of size > 1."""
+    """Each tensor of ``values`` summed over the data group, outside
+    autograd, in ONE all-reduce (a flat vector of their common dtype); the
+    tensors as they are over a data axis of one rank."""
     values = {k: v.detach() for k, v in values.items()}
-    if world_size() == 1:
+    if axis_size(DATA_AXIS) == 1:
         return values
     dtype = functools.reduce(torch.promote_types,
                              (v.dtype for v in values.values()))
     flat = all_reduce_sum_(torch.cat([v.reshape(-1).to(dtype)
-                                      for v in values.values()]))
+                                      for v in values.values()]), DATA_AXIS)
     parts = flat.split([v.numel() for v in values.values()])
     return {k: p.view_as(v).to(v.dtype)
             for (k, v), p in zip(values.items(), parts)}
@@ -150,16 +166,17 @@ def _sum_over_ranks(values: dict) -> dict:
 def _rank_draws(local_batch: int, cfg: Config, dev: torch.device,
                 seed: int) -> dict:
     """This rank's rows of the GLOBAL batch's augmentation draws: every rank
-    draws for ``W * local_batch`` rows from a generator seeded with ``seed``
-    and keeps block ``rank``, so that W ranks see exactly the draws of one
-    process on the global batch (the JAX step draws once for it too)."""
+    draws for ``D * local_batch`` rows (D data ranks) from a generator
+    seeded with ``seed`` and keeps block ``data_index``, so that the data
+    ranks see exactly the draws of one process on the global batch (the JAX
+    step draws once for it too), and a model group's ranks the same ones."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    ranks = world_size()
+    ranks = axis_size(DATA_AXIS)
     draws = sample_train_draws(local_batch * ranks, cfg.data, gen)
     if ranks == 1:
         return draws
-    lo = rank() * local_batch
+    lo = axis_index(DATA_AXIS) * local_batch
     return {k: None if v is None else v[lo:lo + local_batch]
             for k, v in draws.items()}
 
@@ -203,16 +220,19 @@ def _decode_averaged(model: PoseModel, cfg: Config, images):
 
 
 def _check_host_split(mesh, *loaders):
-    """Each loader must be this rank's host split of ``mesh``: a loader of
-    the whole stream on every rank would train each rank on all rows."""
+    """Each loader must be this rank's host split of ``mesh``, one per data
+    index: a loader of the whole stream on every rank would train each rank
+    on all rows."""
     for ld in loaders:
         if ld is not None and (getattr(ld, "num_hosts", 1),
-                               getattr(ld, "host_id", 0)) != (mesh.world_size,
-                                                               mesh.rank):
+                               getattr(ld, "host_id", 0)) != (mesh.data_size,
+                                                               mesh.data_index):
             raise ValueError(
                 f"loader split over {getattr(ld, 'num_hosts', 1)} hosts "
-                f"(host {getattr(ld, 'host_id', 0)}) on rank {mesh.rank} of "
-                f"{mesh.world_size}: pass num_hosts=W, host_id=rank")
+                f"(host {getattr(ld, 'host_id', 0)}) on data index "
+                f"{mesh.data_index} of {mesh.data_size}: pass "
+                "num_hosts=W, host_id=rank (with model_parallel t: W // t "
+                "and rank // t)")
 
 
 def _check_device(model: PoseModel, device) -> torch.device:
@@ -261,11 +281,13 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
     any clip.  The metrics stay on the device: reading them waits for the
     step.
 
-    Under a process group of size W > 1, ``batch`` is this rank's rows of
-    the global batch: BN takes global statistics, the loss is this rank's
-    share of the global loss, the gradients are summed over ranks
+    Over a mesh of W > 1 ranks, ``batch`` is this data rank's rows of the
+    global batch: BN takes global statistics, the loss is this rank's share
+    of the global loss, the gradients are summed over the data group
     (:meth:`.state.OptimizerChain.step`), and the metrics returned are
-    those of the global batch, equal on every rank.
+    those of the global batch, equal on every rank.  A model sharded by
+    :func:`..parallel.tp.shard_model_` trains its shards (shard it before
+    this call: the optimizer is made over its parameters here).
     """
     dev = _check_device(model, device)
     in_size = model.input_size
@@ -414,8 +436,8 @@ def make_eval_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
     scale-1.0 pass, whatever ``eval_scales`` says; each other scale re-crops
     and decodes, and the predictions average in original-image pixels.
     Under data parallelism the loss and the PCKh counts are the global
-    batch's (summed over ranks, as the JAX step's psum) and ``pred_orig``
-    holds this rank's rows.
+    batch's (summed over the data group, as the JAX step's psum) and
+    ``pred_orig`` holds this data rank's rows.
     """
     dev = _check_device(model, device)
     in_size = model.input_size
@@ -636,13 +658,16 @@ class Trainer:
     before its first step.
 
     Over a ``mesh`` of W processes (:func:`..parallel.mesh.make_mesh`; the
-    default group's when None) each rank trains its share of every global
-    batch: the loaders split hosts as ``ShardedLoader(num_hosts=W,
-    host_id=rank)``, a resident split stages this rank's strided shard,
-    and the steps compute the global batch's step.  Only rank 0 logs,
-    renders samples and writes metric records (``metric_writer`` is dropped
-    on the other ranks); ``images_per_sec`` counts the global batch; every
-    rank calls the checkpointer, which writes on rank 0.
+    default group's when None), ``(D, t)`` as ``(data, model)``, each data
+    rank trains its share of every global batch: the loaders split hosts as
+    ``ShardedLoader(num_hosts=D, host_id=data_index)``, a resident split
+    stages its data index's strided shard, and the steps compute the global
+    batch's step.  The Trainer shards ``model`` over the model axis
+    (:func:`..parallel.tp.shard_model_`, after ``pretrained_resnet`` is
+    loaded into the whole model).  Only rank 0 logs, renders samples and
+    writes metric records (``metric_writer`` is dropped on the other
+    ranks); ``images_per_sec`` counts the global batch; every rank calls
+    the checkpointer, which gathers the shards and writes on rank 0.
     """
 
     model: PoseModel
@@ -663,6 +688,7 @@ class Trainer:
         if self.mesh.rank != 0:
             self.metric_writer = None
         self._load_pretrained()
+        tp.shard_model_(self.model.net, self.mesh)
         self._autopack = self._maybe_autopack()
         self.resident = self._maybe_resident()
         spe = max((self.resident or self.train_loader).steps_per_epoch, 1)
@@ -783,7 +809,7 @@ class Trainer:
                                      resident_nbytes)
 
         ds = self.train_loader.dataset
-        shards = self.mesh.world_size
+        shards = self.mesh.data_size
         if resident_arrays(ds) is None:
             if mode == "on":
                 raise ValueError(
@@ -807,7 +833,7 @@ class Trainer:
             "GiB)")
         return ResidentTrainData(ds, self.cfg.train.batch_size, self.device,
                                  seed=self.cfg.train.seed, num_shards=shards,
-                                 shard=self.mesh.rank)
+                                 shard=self.mesh.data_index)
 
     def _maybe_val_resident(self):
         """Stage the val split on the device too, when configured and it
@@ -822,7 +848,7 @@ class Trainer:
         ds = self.val_loader.dataset
         if resident_arrays(ds) is None:
             return None
-        shards = self.mesh.world_size
+        shards = self.mesh.data_size
         staged = self.resident.nbytes if self.resident is not None else 0
         if mode == "auto" and not resident_fits(ds, self.device,
                                                 extra_nbytes=staged,
@@ -835,7 +861,7 @@ class Trainer:
             f"device_resident={mode}: staging val split on the device "
             f"({resident_nbytes(ds) // shards / 2**30:.2f} GiB/device)")
         return ResidentEvalData(ds, self.cfg.train.batch_size, self.device,
-                                num_shards=shards, shard=self.mesh.rank)
+                                num_shards=shards, shard=self.mesh.data_index)
 
     def init_state(self) -> TrainState:
         """The state the Trainer's steps train: the restore template."""
@@ -940,7 +966,7 @@ class Trainer:
 
             summary = {"epoch": epoch, "train_loss": train_loss,
                        "epoch_seconds": epoch_time,
-                       "images_per_sec": n_steps * local_bs * self.mesh.world_size
+                       "images_per_sec": n_steps * local_bs * self.mesh.data_size
                        / max(epoch_time, 1e-9)}
             will_ckpt = bool(self.checkpointer) and \
                 (epoch + 1) % cfg.train.checkpoint_every_epochs == 0
@@ -999,8 +1025,9 @@ class EvalDriver:
     :meth:`init_state` returns it as the restore template, a checkpoint
     restores into it in place, and :meth:`evaluate` and :meth:`predict`
     take no other object.  Over a ``mesh`` of W processes the loader is
-    this rank's host split: :meth:`evaluate` gives the global counts and
-    :meth:`predict` every row, on every rank.
+    this data index's host split: :meth:`evaluate` gives the global counts
+    and :meth:`predict` every row, on every rank; it shards
+    ``model`` over the model axis, as the Trainer does.
     """
 
     model: PoseModel
@@ -1014,6 +1041,7 @@ class EvalDriver:
         if self.mesh is None:
             self.mesh = make_mesh(device=self.device)
         _check_host_split(self.mesh, self.loader)
+        tp.shard_model_(self.model.net, self.mesh)
         self.state = create_train_state(self.model, self.cfg)
         self.eval_step = make_eval_fn(self.model, self.cfg, self.device)
         self._infer_step = None  # made at the first predict()
@@ -1042,11 +1070,12 @@ class EvalDriver:
         Rows go back through the loader's per-batch index map
         (:meth:`..data.loader.ShardedLoader.global_index_batches`); pad rows
         (index -1) are dropped by index.  Coverage is an explicit mask, not a
-        NaN sentinel: a diverged model's NaN coords are written out.  Over W
-        ranks each step's global batch is gathered first (an all-reduce of
-        a zeroed ``(W * B, J, 2)`` buffer holding this rank's rows in block
-        ``rank``, the layout :func:`..parallel.mesh.check_row_order`
-        verifies), so every rank returns all rows.
+        NaN sentinel: a diverged model's NaN coords are written out.  Over D
+        data ranks each step's global batch is gathered first (an all-reduce
+        over the data group of a zeroed ``(D * B, J, 2)`` buffer holding
+        this rank's rows in block ``data_index``, the layout
+        :func:`..parallel.mesh.check_row_order` verifies), so every rank
+        returns all rows.
         """
         self._own(state)
         check_row_order(self.mesh)
@@ -1087,10 +1116,10 @@ class EvalDriver:
 
     @torch.inference_mode()
     def _gathered(self, local: torch.Tensor) -> torch.Tensor:
-        """The global batch's rows from every rank's ``local`` rows."""
-        w, b = self.mesh.world_size, local.shape[0]
-        if w == 1:
+        """The global batch's rows from every data rank's ``local`` rows."""
+        d, i, b = self.mesh.data_size, self.mesh.data_index, local.shape[0]
+        if d == 1:
             return local
-        out = local.new_zeros((w * b, *local.shape[1:]))
-        out[self.mesh.rank * b:(self.mesh.rank + 1) * b] = local
-        return all_reduce_sum_(out)
+        out = local.new_zeros((d * b, *local.shape[1:]))
+        out[i * b:(i + 1) * b] = local
+        return all_reduce_sum_(out, DATA_AXIS)

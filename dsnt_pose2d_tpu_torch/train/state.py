@@ -25,7 +25,9 @@ from dataclasses import dataclass
 import torch
 
 from ..models.factory import PoseModel
-from ..parallel.mesh import all_reduce_grads_
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_reduce_grads_,
+                             all_reduce_sum_, broadcast_grads_)
+from ..parallel.tp import shard_of
 from ..utils.config import Config, OptimConfig
 
 
@@ -55,9 +57,15 @@ def make_lr_schedule(cfg: OptimConfig, steps_per_epoch: int, epochs: int = 200):
     return schedule
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over all ``tensors``, as ``optax.global_norm``."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors, sharded=()) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over all ``tensors``, as ``optax.global_norm``;
+    with ``sharded`` tensors (this rank's shards of the model's sharded
+    leaves) their squares are summed over the model group and added."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    if not sharded:
+        return norm
+    sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(sharded))) ** 2
+    return torch.sqrt(norm * norm + all_reduce_sum_(sq, MODEL_AXIS))
 
 
 @torch.no_grad()
@@ -87,20 +95,29 @@ class OptimizerChain:
         """One update from the parameters' ``.grad``; returns the global norm
         of the gradients before the clip (``optax.global_norm(grads)``).
 
-        Under a process group of size > 1 the gradients are first summed
-        over ranks in place (each rank's loss is its share of the global
-        loss, so the sum is the global gradient; DDP's mean would not be),
-        in buckets (:func:`..parallel.mesh.all_reduce_grads_`): the norm,
-        the clip and the update then see the global gradient on every rank.
-        ``check``, if given, is called after that sum and before the update
-        (``--debug-nans``'s finite check: every rank sees the same sums, so
-        all raise together).
+        Over a data axis of more than one rank the gradients are first
+        summed over the data group in place (each data rank's loss is its
+        share of the global loss, so the sum is the global gradient; DDP's
+        mean would not be), in buckets
+        (:func:`..parallel.mesh.all_reduce_grads_`).  Over a model axis of
+        more than one rank each replicated leaf's gradient is then model
+        rank 0's on every rank of the model group (a bucketed broadcast:
+        exact, so the replicated leaves stay bitwise equal across the group
+        whatever order each rank's backward summed in), and the norm sums
+        the sharded leaves' squares over the model group, each replicated
+        leaf counted once.  The norm, the clip and the update then see the
+        global gradient on every rank.  ``check``, if given, is called with
+        the norm before the update (``--debug-nans``'s finite check: every
+        rank sees the same norm, so all raise together).
         """
-        grads = [p.grad for p in self.params if p.grad is not None]
-        all_reduce_grads_(grads)
+        params = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in params]
+        all_reduce_grads_(grads, DATA_AXIS)
+        whole = [p.grad for p in params if shard_of(p) is None]
+        broadcast_grads_(whole, MODEL_AXIS)
+        norm = global_norm(whole, [p.grad for p in params if shard_of(p)])
         if check is not None:
-            check()
-        norm = global_norm(grads)
+            check(norm)
         if self.max_norm:
             clip_by_global_norm_(grads, self.max_norm, norm)
         lr = self.schedule(self.count)

@@ -406,17 +406,13 @@ def _free_port() -> int:
 
 @pytest.mark.parametrize("flag,title", [
     (["--dashboard-port", "8080"], "Telemetry"), (["--profile-dir", "p"], "Telemetry"),
-    (["--debug-nans"], "Telemetry"), (["--model-parallel", "2"], "Data parallel")])
+    (["--debug-nans"], "Telemetry")])
 def test_unported_train_flags_raise_with_their_roadmap_item(flag, title, tmp_path,
                                                              monkeypatch):
-    # Only --model-parallel > 1 still raises.  The Telemetry flags work
-    # (formerly refused): each runs a 2-epoch train and does its job.
-    if title != "Telemetry":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {title}"):
-            train.main(TINY + ["--out-dir", str(tmp_path)] + flag)
-        assert not os.listdir(tmp_path)
-        assert f"**{title}" in (ROOT / "ROADMAP.md").read_text()
-        return
+    # No train flag raises any more.  The Telemetry flags work (formerly
+    # refused): each runs a 2-epoch train and does its job.  --model-parallel
+    # (refused until tensor parallelism was ported) is held by
+    # tests/test_torch_parallel_tp.py and tests/test_torch_parallel_data.py.
     import urllib.request
 
     from dsnt_pose2d_tpu_torch.train import dashboard

@@ -34,7 +34,7 @@ NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "data.loader", "data.mpii", "data.pack", "data.prepare",
                "data.resident", "models.import_torch", "models.resnet",
                "models.vit", "native", "ops.cuda.calib", "ops.decode",
-               "parallel", "parallel.mesh",
+               "parallel", "parallel.mesh", "parallel.tp",
                "train.checkpoint", "train.dashboard", "train.metrics",
                "train.profiling", "utils.visualization")
 

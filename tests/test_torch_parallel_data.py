@@ -8,6 +8,7 @@ virtual CPU devices; nothing here starts a rank.
 """
 
 import datetime
+import os
 import socket
 
 import numpy as np
@@ -207,11 +208,22 @@ def test_initialize_distributed_is_fatal_on_a_partial_launch(no_launcher):
     assert not dist.is_initialized()
 
 
-def test_model_parallel_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Tensor parallel"):
+def test_model_parallel_wider_than_the_world_raises_as_jax(no_launcher, tmp_path):
+    # One process holds one device: model_parallel=2 does not divide it, and
+    # the port raises the JAX package's ValueError, in make_mesh and in the
+    # train CLI (before it writes anything).
+    with pytest.raises(ValueError) as exp:
+        j_make_mesh(1, model_parallel=2)
+    with pytest.raises(ValueError) as got:
         pmesh.make_mesh(model_parallel=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Data parallel: item 8, Tensor parallel"):
-        train_cli.main(["--device", "cpu", "--model-parallel", "2"])
+    assert str(got.value) == str(exp.value)
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
+        train_cli.main(["--device", "cpu", "--model-parallel", "2",
+                        "--out-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+    mesh = pmesh.make_mesh(device="cpu")
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert (mesh.data_size, mesh.data_index, mesh.model_index) == (1, 0, 0)
 
 
 def test_shard_batch_takes_the_ranks_block():

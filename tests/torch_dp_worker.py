@@ -1,4 +1,5 @@
-"""Ranks of the port's data-parallel tests (``tests/test_torch_parallel*.py``).
+"""Ranks of the port's data- and tensor-parallel tests
+(``tests/test_torch_parallel*.py``).
 
 This module imports torch and the port only, never JAX: the tests start
 ``world`` copies of it as plain processes over gloo, under the variables a
@@ -35,6 +36,7 @@ from dsnt_pose2d_tpu_torch.data.resident import ResidentEvalData  # noqa: E402
 from dsnt_pose2d_tpu_torch.models import heads  # noqa: E402
 from dsnt_pose2d_tpu_torch.models.factory import build_pose_model  # noqa: E402
 from dsnt_pose2d_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from dsnt_pose2d_tpu_torch.parallel import tp  # noqa: E402
 from dsnt_pose2d_tpu_torch.train import loop  # noqa: E402
 from dsnt_pose2d_tpu_torch.utils.config import config_from_json  # noqa: E402
 
@@ -42,6 +44,11 @@ from dsnt_pose2d_tpu_torch.utils.config import config_from_json  # noqa: E402
 def launch(job: str, in_dir, out_dir, world: int = 2, timeout: float = 240.0):
     """Run ``job`` on ``world`` ranks and wait for them; raises with the
     ranks' output if one fails or the job outlasts ``timeout`` seconds."""
+    return wait(start(job, in_dir, out_dir, world), timeout)
+
+
+def start(job: str, in_dir, out_dir, world: int = 2):
+    """Start ``job``'s ``world`` ranks; :func:`wait` collects them."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -54,6 +61,12 @@ def launch(job: str, in_dir, out_dir, world: int = 2, timeout: float = 240.0):
             [sys.executable, __file__, job, str(in_dir), str(out_dir)],
             env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+    return job, out_dir, procs
+
+
+def wait(started, timeout: float = 240.0):
+    """The ranks' outputs of a :func:`start`ed job, once all have exited."""
+    job, out_dir, procs = started
     outs = []
     try:
         for p in procs:
@@ -68,7 +81,7 @@ def launch(job: str, in_dir, out_dir, world: int = 2, timeout: float = 240.0):
             f"--- rank {r} exited {p.returncode}:\n{out[-4000:]}"
             for r, (p, out) in enumerate(zip(procs, outs))))
     return [torch.load(Path(out_dir) / f"{job}_rank{r}.pt", weights_only=False)
-            for r in range(world)]
+            for r in range(len(procs))]
 
 
 def load_inputs(in_dir):
@@ -120,6 +133,7 @@ def fp64_steps(cfg, weights, batch, steps: int, mesh=None) -> dict:
     model.net.backbone.dtype = torch.float64
     model.net.register_forward_pre_hook(lambda _, args: (args[0].double(),))
     if mesh is not None:
+        tp.shard_model_(model.net, mesh)
         batch = pmesh.shard_batch(mesh, batch)
     step = loop.make_train_fn(model, cfg, device="cpu")
     out = {"metrics": [], "state": []}
@@ -146,7 +160,7 @@ def nan_on_one_rank(mesh, cfg) -> str | None:
         try:
             loop._backward_checked(
                 loss, global_loss=pmesh.all_reduce_sum_(loss.detach().clone()))
-            opt.step(lambda: loop._check_grads([("w", w)]))
+            opt.step(lambda norm: loop._check_grads([("w", w)], norm))
         except FloatingPointError as e:
             return str(e)
         return None
@@ -301,14 +315,116 @@ def job_trainer(mesh, in_dir) -> dict:
             "shard_rows": {k: tuple(v.shape) for k, v in a.resident.resident.items()}}
 
 
-JOBS = {"step": job_step, "eval": job_eval, "trainer": job_trainer}
+def _moments(state) -> dict:
+    """``{parameter name: {state key: tensor}}`` of the optimizer."""
+    names = {id(p): n for n, p in state.model.net.named_parameters()}
+    opt = state.optimizer.optimizer
+    return {names[id(p)]: {k: v.clone() for k, v in opt.state[p].items()}
+            for g in opt.param_groups for p in g["params"] if p in opt.state}
+
+
+def job_tp(mesh, in_dir) -> dict:
+    """``model_parallel=2`` over 2 ranks.  For each model of ``models.json``
+    its shards as loaded, then one train step on the whole batch (the JAX
+    draws where the job has them) with its metrics, state, optimizer
+    moments and collectives; the hg model's fp64 steps; a checkpoint of the
+    hg state after its step (``ckpt_t2``) and the restore of the one-process
+    checkpoint ``ckpt_t1``; then ``cli.train --model-parallel 2`` ->
+    ``cli.evaluate`` -> ``cli.infer`` at t = 2."""
+    from dsnt_pose2d_tpu_torch.cli import evaluate, infer
+    from dsnt_pose2d_tpu_torch.cli import train as train_cli
+    from dsnt_pose2d_tpu_torch.train.checkpoint import CheckpointManager
+
+    work = Path(in_dir)
+    out = {}
+    for name in json.loads((work / "models.json").read_text()):
+        cfg = config_from_json((work / f"{name}_cfg.json").read_text())
+        weights = npz(work / f"{name}_weights.npz")
+        batch = npz(work / f"{name}_batch.npz")
+        draws = work / f"{name}_draws.npz"
+        draws = ({k: torch.from_numpy(v) for k, v in npz(draws).items()}
+                 if draws.exists() else None)
+        model = build_pose_model(cfg.model, device="cpu", state_dict=weights)
+        tp.shard_model_(model.net, mesh)
+        loaded = _state(model)
+        step = loop.make_train_fn(model, cfg, device="cpu")
+        pmesh.reset_collective_counts()
+        metrics = _host(step(pmesh.shard_batch(mesh, batch), draws=draws))
+        out[name] = {"loaded": loaded, "metrics": metrics, "state": _state(model),
+                     "moments": _moments(step.state),
+                     "collectives": {a: pmesh.collective_counts(a)
+                                     for a in ("data", "model", None)}}
+        if name == "hg":
+            CheckpointManager(str(work / "ckpt_t2")).save_step(
+                step.state, epoch=0, step_in_epoch=1)
+            fresh = build_pose_model(cfg.model, device="cpu", seed=7)
+            tp.shard_model_(fresh.net, mesh)
+            restored = loop.make_train_fn(fresh, cfg, device="cpu").state
+            meta = CheckpointManager(str(work / "ckpt_t1")).step_mgr.restore(
+                1, restored)
+            out["restored"] = {"state": _state(fresh), "moments": _moments(restored),
+                               "count": restored.optimizer.count,
+                               "step": restored.step, "meta": meta}
+            cfg64 = config_from_json((work / "hg_cfg64.json").read_text())
+            out["fp64"] = fp64_steps(cfg64, weights, batch, 2, mesh)
+
+    recorded = {}
+
+    class RecordingDriver(loop.EvalDriver):
+        def evaluate(self, *args, **kw):
+            result = super().evaluate(*args, **kw)
+            recorded["pckh"] = result["pckh"]
+            return result
+
+    evaluate.EvalDriver = RecordingDriver
+    data = ["--device", "cpu", "--data-source", "synthetic",
+            "--synthetic-size", "32", "--canvas-size", "48"]
+    cli_dir = work / "cli"
+    cli = {}
+    with open(work / f"cli_rank{mesh.rank}.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        cli["train"] = train_cli.main(
+            data + ["--base-model", "hg1", "--reg", "js", "--hg-features",
+                    "16", "--input-size", "64", "--dtype", "float32",
+                    "--workers", "1", "--batch-size", "8", "--epochs", "1",
+                    "--lr", "1e-3", "--out-dir", str(cli_dir),
+                    "--experiment-id", "tp", "--device-resident", "off",
+                    "--model-parallel", "2"])
+        cli["evaluate"] = evaluate.main(["--model-dir", str(cli_dir / "tp"), *data])
+        cli["infer"] = infer.main(["--model-dir", str(cli_dir / "tp"), *data,
+                                   "--preds-file", str(cli_dir / "preds.mat")])
+    cli["evaluate_pckh"] = recorded["pckh"]
+    out["cli"] = cli
+    return out
+
+
+def job_tp4(mesh, in_dir) -> dict:
+    """``model_parallel=2`` over 4 ranks (data 2 x model 2): the fp64 step
+    of ``hg_cfg64_remat.json`` (each hourglass stack under remat, whose
+    recompute repeats the stack's collectives) on this data index's rows,
+    with its collectives."""
+    cfg64 = config_from_json((Path(in_dir) / "hg_cfg64_remat.json").read_text())
+    weights = npz(Path(in_dir) / "hg_weights.npz")
+    batch = npz(Path(in_dir) / "hg_batch.npz")
+    pmesh.reset_collective_counts()
+    out = fp64_steps(cfg64, weights, batch, 1, mesh)
+    out["collectives"] = {a: pmesh.collective_counts(a)
+                          for a in ("data", "model", None)}
+    out["mesh"] = (mesh.data_index, mesh.model_index, mesh.shape)
+    return out
+
+
+JOBS = {"step": job_step, "eval": job_eval, "trainer": job_trainer,
+        "tp": job_tp, "tp4": job_tp4}
+# The model-parallel width of each job's mesh (1 where not named).
+MODEL_PARALLEL = {"tp": 2, "tp4": 2}
 
 
 def main(argv):
     job, in_dir, out_dir = argv
     torch.set_num_threads(1)
     pmesh.initialize_distributed("cpu")
-    mesh = pmesh.make_mesh(device="cpu")
+    mesh = pmesh.make_mesh(MODEL_PARALLEL.get(job, 1), device="cpu")
     assert mesh.world_size == int(os.environ["WORLD_SIZE"]) > 1, mesh
     try:
         out = JOBS[job](mesh, in_dir)
