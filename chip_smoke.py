@@ -48,14 +48,23 @@ tensor parallelism: two ranks sharing the card over gloo at
 ``model_parallel`` 2 (fp32 hg2 at the flagship's widths, 8 rows), each
 holding its shards of the model, against one process the same way, with
 each rank's shard shapes, its replicated leaves against the other rank's,
-the bytes it holds and the model-axis collectives of a step.
+the bytes it holds and the model-axis collectives of a step.  Last,
+``tools``: the experiment drivers of ``dsnt_pose2d_tpu_torch/tools/`` over
+the CLIs' synthetic fallback: the heads grid (hg2, dsnt+JS, gauss, fc) as
+``python -m``, the resolution grid's dsnt cells (ResNet-34, dilate 0/1/2:
+7x7, 14x14, 28x28 maps) and the flagship report in this process with
+their launches counted, the sweep's b16 and b64_nopallas rows,
+bench_infer and profile_step; then each resolution cell's checkpoint
+through its eval and train steps against the plain path, and the head's
+kernels at its map held, timed and their layouts named.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
 (``--dp-rank <dir>`` and ``--dp-cli <flags>`` are the ``dp`` phase's own
-child processes, ``--tp-rank <dir>`` the ``tp`` phase's.)
+child processes, ``--tp-rank <dir>`` the ``tp`` phase's, ``--head-layouts
+<shapes>`` the ``tools`` phase's.)
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last is the card's name and power limit as
@@ -561,14 +570,9 @@ def recording_head(calls):
 def plain_row_shift():
     """The shear warp with row_shift's plain version in place of its kernel."""
     from dsnt_pose2d_tpu_torch.data import augment
-    from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows_reference
 
-    kernel = augment.shift_rows
-    augment.shift_rows = shift_rows_reference
-    try:
+    with augment.plain_row_shift():
         yield
-    finally:
-        augment.shift_rows = kernel
 
 
 @contextlib.contextmanager
@@ -3238,6 +3242,385 @@ def phase_tp(dev, card):
     return {"launches": launches, "errs": errs}
 
 
+# The tools phase: the experiment drivers of dsnt_pose2d_tpu_torch/tools/
+# over the synthetic fallback (a directory without MPII: the CLIs' 256
+# train and 64 val rows of 96-px canvases).  ablation_heads at hg2's full
+# width runs as a module (python -m) in a process of its own; beside it the
+# resolution grid and the flagship report run in this process (their CLIs'
+# main(argv), so the launch counters count), then sweep_train_step's
+# run_one, bench_infer and profile_step (cut to single windows: their times
+# beside the heads grid are not measurements); last, alone on the card, the
+# head's kernels at the resolution grid's 7x7, 14x14 and 28x28 maps.
+TOOLS_EPOCHS = 1
+TOOLS_DILATES = (0, 1, 2)   # 7x7, 14x14, 28x28 maps at the ResNet's 224 px
+TOOLS_FLAGSHIP_EPOCHS = 3          # the report's steady state skips 0-1
+TOOLS_SWEEP = ("b16", "b64_nopallas")
+TOOLS_SWEEP_KW = {"iters": 1, "repeats": 1}
+TOOLS_INFER = ["--bases", "hg2,resnet50", "--repeats", "2", "--iters", "1"]
+TOOLS_PROFILE = ["--steps", "3", "--batch", "16", "--warp", "shear"]
+TOOLS_TIMEOUT_S = 600
+# Kernel launches of one cell of the in-process grids, from the code: the
+# synthetic fallback's 256 train rows (drop_last) and 64 val rows; a train
+# step launches 1 head forward, 1 backward and 2 row_shift, an eval step 2
+# forwards (decode and loss) and 2 row_shift; the train CLI's eval pass and
+# evaluate's pass each cover the val rows once.
+TOOLS_ROWS = {"train": 256, "val": 64}
+
+
+def tools_cell_launches(batch, epochs):
+    train = epochs * (TOOLS_ROWS["train"] // batch)
+    evals = (epochs + 1) * -(-TOOLS_ROWS["val"] // batch)
+    return {"dsnt_head_fwd": train + 2 * evals, "dsnt_head_bwd": train,
+            "row_shift": 2 * (train + evals)}
+
+
+def tools_module(name, args, device):
+    """``python -m dsnt_pose2d_tpu_torch.tools.<name>`` in a process of its
+    own, started (the Popen; stdout and stderr merged)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"dsnt_pose2d_tpu_torch.tools.{name}", *args,
+         "--device", device], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def same_keys(got: dict, doc: dict, where: str):
+    """``got`` has ``doc``'s keys, nested dicts too; each cell of a
+    ``results`` dict has the keys of the doc's first cell."""
+    if set(got) != set(doc):
+        raise AssertionError(f"{where}: keys {sorted(got)} != {sorted(doc)}")
+    for k, v in doc.items():
+        if isinstance(v, dict) and k == "results":
+            for cell, r in got[k].items():
+                same_keys(r, next(iter(v.values())), f"{where}.{cell}")
+        elif isinstance(v, dict) and k != "config":
+            same_keys(got[k], v, f"{where}.{k}")
+
+
+def tools_doc(name) -> dict:
+    with open(ROOT / "docs" / name) as f:
+        return json.load(f)
+
+
+def head_layouts_main(spec: str):
+    """``chip_smoke.py --head-layouts '[[n, h, w], ...]'``: the head's
+    forward and backward instances that one call of each launches, from a
+    fresh process's profiler (see PROFILE_ATTEMPTS); one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsnt_pose2d_tpu_torch.ops.cuda import fused_dsnt_head, fused_dsnt_head_bwd
+
+    out = {}
+    for n, h, w in json.loads(spec):
+        raw, t = head_inputs(n, h, w, seed=h * w, dev=torch.device("cuda"))
+        gc_, gr = torch.ones((n, 2), device="cuda"), torch.ones((n,), device="cuda")
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fused_dsnt_head(raw, t, reg="js")
+                fused_dsnt_head_bwd(raw, t, gc_, gr, reg="js")
+                torch.cuda.synchronize()
+            names = {_short_name("", e.name) for e in _device_events(prof)
+                     if re.search(r"\bdsnt_head_(fwd|bwd)_kernel\b", e.name)}
+            if len(names) == 2:
+                break
+        else:
+            raise RuntimeError(f"no profile of the head at {h}x{w} named both "
+                               f"kernels in {PROFILE_ATTEMPTS} attempts")
+        out[f"{h}x{w}"] = {"instances": sorted(names), "profiles": attempt,
+                           "fwd": next(n.rsplit(", ", 1)[-1].rstrip(">")
+                                       for n in names if "fwd" in n),
+                           "bwd": next(n.rsplit(", ", 1)[-1].rstrip(">")
+                                       for n in names if "bwd" in n)}
+    print(json.dumps(out), flush=True)
+
+
+def head_layouts(shapes) -> dict:
+    """:func:`head_layouts_main` in a process of its own."""
+    lay = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--head-layouts",
+         json.dumps(shapes)], cwd=ROOT, capture_output=True, text=True,
+        timeout=TOOLS_TIMEOUT_S)
+    if lay.returncode:
+        raise AssertionError(f"--head-layouts exited {lay.returncode}:\n"
+                             + lay.stderr[-3000:])
+    return json.loads(lay.stdout.strip().splitlines()[-1])
+
+
+def head_at_map(call, ceiling) -> dict:
+    """The head's forward and backward kernels on one map size's recorded
+    train-step call (its logits, targets and cotangents): against the plain
+    versions at the head tolerances, timed, and against the bytes bound."""
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.ops.cuda import (fused_dsnt_head,
+                                                fused_dsnt_head_bwd,
+                                                fused_dsnt_head_bwd_reference,
+                                                fused_dsnt_head_reference)
+
+    raw, t, kw = call["raw"], call["t"], call["kw"]
+    gc_, gr = call["gc"], call["gr"]
+    *lead, h, w = raw.shape
+    n = math.prod(lead)
+    reg, preact = kw["reg"], kw.get("preact", "softmax")
+    err_c, err_r = compare_head(raw, t, reg, preact, kw.get("threshold", 0.0),
+                                kw.get("sigma_px", 1.0))
+    got = fused_dsnt_head_bwd(raw, t, gc_, gr, **kw)
+    exp = fused_dsnt_head_bwd_reference(raw, t, gc_, gr, **kw)
+    torch.cuda.synchronize()
+    assert_dh_close(got, exp)
+    # A trained cell's logits are peaked (most rows near one-hot); the same
+    # shape on head_inputs' rows (std 3, peaked and all-below-threshold rows)
+    # and random cotangents, through both kernels and autograd, as well.
+    rand_raw, rand_t = head_inputs(n, h, w, seed=h * w + 2, dev=raw.device)
+    g = torch.Generator().manual_seed(n + h)
+    rand_gc = torch.randn((n, 2), generator=g).to(raw.device)
+    rand_gr = torch.randn((n,), generator=g).to(raw.device)
+    rand_fwd = compare_head(rand_raw, rand_t, reg, preact)
+    rand_bwd = compare_head_bwd(rand_raw, rand_t, rand_gc, rand_gr, reg, preact)
+    fwd_t = timing.kernel_times(lambda: fused_dsnt_head(raw, t, **kw),
+                                lambda: fused_dsnt_head_reference(raw, t, **kw))
+    bwd_t = timing.kernel_times(
+        lambda: fused_dsnt_head_bwd(raw, t, gc_, gr, **kw),
+        lambda: fused_dsnt_head_bwd_reference(raw, t, gc_, gr, **kw))
+    fwd_bytes, fwd_ops = head_bytes_ops(n, h * w, reg)
+    bwd_bytes = 8 * n * h * w + 4 * 5 * n      # raw, dh; targets, gc, gr
+    bwd_ops = HEAD_BWD_FLOPS_PER_ELEMENT[reg] * n * h * w
+    out = {"rows": n, "hw": [h, w], "logit_std": raw.std().item(),
+           "random_rows": {"fwd_coords_err": rand_fwd[0], "fwd_reg_err": rand_fwd[1],
+                           "bwd_kernel_vs_plain_err": rand_bwd[0],
+                           "bwd_plain_vs_autograd_err": rand_bwd[1]}}
+    for key, times, nbytes, nops, err, rand in (
+            ("fwd", fwd_t, fwd_bytes, fwd_ops, max(err_c, err_r), rand_fwd),
+            ("bwd", bwd_t, bwd_bytes, bwd_ops, (got - exp).abs().max().item(),
+             rand_bwd[:1])):
+        b_ms, by = bound_ms(nbytes, nops)
+        out[key] = {"max_abs_err": max(err, *rand), **{k: times[k] for k in (
+            "ms", "plain_ms", "library_ms", "ms_spin")},
+            "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+            "frac_of_ceiling": nbytes / times["ms"] / 1e6 / ceiling}
+    return out
+
+
+def tools_resolution_cell(cell_dir, data_dir, dev, ceiling) -> dict:
+    """One dsnt cell of the resolution grid on its own checkpoint and the
+    first val batch: the eval step against the plain path (the serve
+    tolerance), one train step against it (the train tolerance), and the
+    head's kernels at the cell's map."""
+    import dataclasses
+
+    from dsnt_pose2d_tpu_torch.cli.common import make_datasets
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.train.checkpoint import CheckpointManager
+    from dsnt_pose2d_tpu_torch.train.loop import make_eval_fn, make_train_fn
+
+    ckpt = CheckpointManager(cell_dir)
+    cfg = ckpt.load_config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, data_dir=data_dir, source="auto"))
+    _, val_ds = make_datasets(cfg)
+    batch = {k: torch.from_numpy(v[:cfg.train.batch_size]).to(dev)
+             for k, v in val_ds.arrays.items()}
+    model = build_pose_model(cfg.model, device=dev, seed=0)
+    state, meta = ckpt.restore(make_train_fn(model, cfg, device=dev).state)
+    assert state is not None, cell_dir
+    eval_step = make_eval_fn(model, cfg, device=dev)
+    serve = eval_vs_plain(eval_step, batch)
+    calls = {}
+    with recording_head(calls):
+        train = train_vs_plain(model, cfg, batch, dev, 1, {
+            "dsnt_head_fwd": 1, "dsnt_head_bwd": 1, "row_shift": 2})
+    (call,) = [c for c in calls.values() if c["gc"] is not None]
+    head = head_at_map(call, ceiling)
+    out = {"epoch": meta["epoch"], "eval_vs_plain": serve,
+           "train_vs_plain": train["plain_path"], "head": head}
+    del model, train, eval_step, calls, call
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tools_finish(proc, name) -> str:
+    """Wait for a :func:`tools_module` process (killed at TOOLS_TIMEOUT_S);
+    its output; raise if it failed."""
+    try:
+        out, _ = proc.communicate(timeout=TOOLS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode:
+        raise AssertionError("%s exited %d:\n%s" % (
+            name, proc.returncode, "\n".join(out.splitlines()[-40:])))
+    return out
+
+
+def phase_tools(dev, card, ceiling):
+    """The experiment drivers (see TOOLS_* above).  Returns the launches of
+    the in-process runs (the resolution grid and the flagship report), the
+    head kernels' largest errors at the grid's maps, and the maps' records."""
+    import tempfile
+
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.tools import (ablation_common,
+                                             ablation_resolution,
+                                             flagship_report, sweep_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    device = dev.type
+    t_phase = time.perf_counter()
+    launches, walls = {}, {}
+
+    def done(part, t0):
+        walls[part] = time.perf_counter() - t0
+        print(f"[tools +{time.perf_counter() - t_phase:.1f}s] {part} "
+              f"{walls[part]:.1f}s", file=sys.stderr, flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="dsnt_tools_") as tmp:
+        data = os.path.join(tmp, "data")      # no MPII: the synthetic fallback
+        os.makedirs(data)
+        t_heads = time.perf_counter()
+        heads = tools_module("ablation_heads", [
+            "--data-dir", data, "--epochs", str(TOOLS_EPOCHS),
+            "--batch-size", str(BATCH), "--out-dir", os.path.join(tmp, "heads")],
+            device)
+        try:
+            # Beside the heads grid's process: the in-process grids (counted),
+            # then the benches, whose times are therefore not measurements.
+            grids = {"resolution": (ablation_resolution.main, [
+                "--data-dir", data, "--heads", "dsnt", "--dilates",
+                ",".join(map(str, TOOLS_DILATES)), "--epochs", str(TOOLS_EPOCHS),
+                "--batch-size", str(BATCH), "--out-dir", os.path.join(tmp, "res")]),
+                     "flagship": (flagship_report.main, [
+                "--data-dir", data, "--epochs", str(TOOLS_FLAGSHIP_EPOCHS),
+                "--skip-device-bench", "--out-dir", os.path.join(tmp, "flagship")])}
+            for name, (main_fn, argv) in grids.items():
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                with ablation_common.in_process():
+                    assert main_fn(argv + ["--device", device]) == 0
+                torch.cuda.synchronize()
+                launches[name] = kernels.launch_counts()
+                done(name, t0)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            configs = dict(sweep_train_step.CONFIGS)
+            sweep = [sweep_train_step.run_one(label, configs[label], device=device,
+                                              **TOOLS_SWEEP_KW)
+                     for label in TOOLS_SWEEP]
+            if not all("ips" in r and r["ips"] > 0 for r in sweep):
+                raise AssertionError(f"sweep_train_step rows {sweep}")
+            done("sweep", t0)
+
+            t0 = time.perf_counter()
+            infer_file = os.path.join(tmp, "infer.json")
+            tools_finish(tools_module("bench_infer",
+                                      [*TOOLS_INFER, "--out", infer_file], device),
+                         "bench_infer")
+            with open(infer_file) as f:
+                infer_rows = json.load(f)
+            for r in infer_rows:
+                same_keys(r, tools_doc("infer_bench.json")[0],
+                          f"bench_infer.{r.get('base')}")
+            done("bench_infer", t0)
+
+            t0 = time.perf_counter()
+            prof_out = tools_finish(tools_module(
+                "profile_step", [*TOOLS_PROFILE, "--out",
+                                 os.path.join(tmp, "prof")], device), "profile_step")
+            prof_rec = json.loads(prof_out.strip().splitlines()[-1])
+            (trace_path,) = prof_rec["trace_files"]
+            with open(trace_path) as f:
+                names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+            named = {k: sum(1 for n in names if re.search(rf"\b{k}_kernel\b", n))
+                     for k in TELEMETRY_KERNELS}
+            if not all(named.values()):
+                raise AssertionError(f"profile_step's trace names the kernels {named}")
+            done("profile_step", t0)
+            tools_finish(heads, "ablation_heads")
+            done("heads", t_heads)
+        finally:
+            if heads.poll() is None:
+                heads.kill()
+                heads.communicate()
+
+        # The JSON records against the JAX runs' records in docs/.
+        with open(os.path.join(data, "ablation_heads.json")) as f:
+            heads_json = json.load(f)
+        same_keys(heads_json, tools_doc("ablation_heads.json"), "ablation_heads")
+        with open(os.path.join(data, "ablation_resolution.json")) as f:
+            res_json = json.load(f)
+        same_keys(res_json, tools_doc("ablation_resolution.json"),
+                  "ablation_resolution")
+        with open(os.path.join(tmp, "flagship", "flagship_hg8_report.json")) as f:
+            flagship = json.load(f)
+        doc = {k: v for k, v in tools_doc("flagship_hg8_report.json").items()
+               if "device_step" not in k}
+        same_keys(flagship, doc, "flagship_report")
+        assert set(flagship["per_epoch"][0]) == set(doc["per_epoch"][0])
+        assert len(flagship["per_epoch"]) == TOOLS_FLAGSHIP_EPOCHS
+        pckh = {**{f"heads_{k}": r["pckh_total"]
+                   for k, r in heads_json["results"].items()},
+                **{k: r["pckh_total"] for k, r in res_json["results"].items()},
+                "flagship": flagship["pckh_total"]}
+        if set(heads_json["results"]) != {"dsnt", "gauss", "fc"} or not all(
+                v is not None and math.isfinite(v) for v in pckh.values()):
+            raise AssertionError(f"tools: PCKh totals {pckh}")
+        expected = {"resolution": {k: len(TOOLS_DILATES) * v for k, v in
+                                   tools_cell_launches(BATCH, TOOLS_EPOCHS).items()},
+                    "flagship": tools_cell_launches(16, TOOLS_FLAGSHIP_EPOCHS)}
+        for name, counts in launches.items():
+            want = {**dict.fromkeys(counts, 0), **expected[name]}
+            if counts != want:
+                raise AssertionError(f"tools {name} launches {counts}, "
+                                     f"expected {want}")
+
+        # Alone on the card: each map's cell held and its kernels timed.
+        t0 = time.perf_counter()
+        cells = {}
+        for d in TOOLS_DILATES:
+            cell = tools_resolution_cell(
+                os.path.join(tmp, "res", f"dilate{d}_dsnt"), data, dev, ceiling)
+            cells["%dx%d" % tuple(cell["head"]["hw"])] = {"dilate": d, **cell}
+        done("resolution_holds", t0)
+        t0 = time.perf_counter()
+        layouts = head_layouts([[c["head"]["rows"], *c["head"]["hw"]]
+                                for c in cells.values()])
+        for key, c in cells.items():
+            c["layout"] = layouts[key]
+        done("layouts", t0)
+
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    errs = {kind: max(c["head"][kind]["max_abs_err"] for c in cells.values())
+            for kind in ("fwd", "bwd")}
+    emit("tools", card=card, wall_s=time.perf_counter() - t_phase,
+         walls_s=walls, data="synthetic fallback (no MPII in the data dir)",
+         pckh=pckh,
+         heads={k: {"pckh_total": r["pckh_total"], "train_s": r["train_s"]}
+                for k, r in heads_json["results"].items()},
+         resolution={k: {kk: r[kk] for kk in ("pckh_total", "train_s")}
+                     for k, r in res_json["results"].items()},
+         maps=cells,
+         flagship={k: v for k, v in flagship.items()
+                   if k not in ("pckh_table", "per_epoch", "config")},
+         flagship_per_epoch=flagship["per_epoch"],
+         beside_the_heads_grid="the grids, sweep, bench_infer and profile_step "
+                               "ran beside the heads grid's process: their "
+                               "times are not measurements",
+         sweep=sweep, bench_infer=infer_rows,
+         profile_step={**prof_rec, "kernel_events": named},
+         launches=launches,
+         tolerance={"eval": STEP_TOL, "train": TRAIN_TOL, "head": HEAD_TOL,
+                    "head_bwd": HEAD_BWD_TOL},
+         clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return {"launches": total, "errs": errs, "maps": cells}
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -3287,11 +3670,13 @@ def main():
     # Last: their ranks and CLI runs are processes of their own.
     dp = phase_dp(dev, card)
     tp = phase_tp(dev, card)
+    tools = phase_tools(dev, card, ceiling)
     paths = {"serve": serve_launches, "train": train_launches,
              "bench": bench_launches, "trainer": trainer_launches,
              "cli": cli_launches, "resnet": resnet["launches"],
              "heads": heads_launches, "vit": vit["launches"],
-             "remat": remat_launches, "dp": dp["launches"], "tp": tp["launches"]}
+             "remat": remat_launches, "dp": dp["launches"], "tp": tp["launches"],
+             "tools": tools["launches"]}
 
     def launches(name):
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}
@@ -3305,6 +3690,11 @@ def main():
     def at_56(r):   # a config #5 path's 512 rows of 56x56
         return {k: r[k] for k in (*keys, "rows", "layout", "frac_of_ceiling")}
 
+    def at_maps(kind):   # the resolution grid's maps (tools phase)
+        return {f"at_{m}": {**{k: c["head"][kind][k] for k in (
+            *keys, "frac_of_ceiling")}, "rows": c["head"]["rows"],
+            "layout": c["layout"][kind]} for m, c in tools["maps"].items()}
+
     head_bytes = sum(c["bytes"] for c in head["per_call"].values())
     shift_bytes = sum(c["bytes"] for c in shift["serve"]["per_call"].values())
     entries = [
@@ -3314,20 +3704,22 @@ def main():
          **launches("dsnt_head_fwd"),
          "max_abs_err": max(head["max_abs_err"], resnet["fwd"]["max_abs_err"],
                             vit["fwd"]["max_abs_err"], dp["errs"]["dsnt_head_fwd"],
-                            tp["errs"]["dsnt_head_fwd"]),
+                            tp["errs"]["dsnt_head_fwd"], tools["errs"]["fwd"]),
          **{k: head[k] for k in keys},
          "frac_of_ceiling": frac_of_ceiling(head_bytes, head["ms"]),
-         "at_56x56": at_56(resnet["fwd"]), "at_56x56_vit": at_56(vit["fwd"])},
+         "at_56x56": at_56(resnet["fwd"]), "at_56x56_vit": at_56(vit["fwd"]),
+         **at_maps("fwd")},
         {"name": "dsnt_head_bwd", "route": "cuda",
          "source": "dsnt_pose2d_tpu_torch/ops/cuda/dsnt_head.cu",
          "replaces": "dsnt_pose2d_tpu/ops/pallas/dsnt_head.py:213",
          **launches("dsnt_head_bwd"),
          "max_abs_err": max(bwd["max_abs_err"], resnet["bwd"]["max_abs_err"],
                             vit["bwd"]["max_abs_err"], dp["errs"]["dsnt_head_bwd"],
-                            tp["errs"]["dsnt_head_bwd"]),
+                            tp["errs"]["dsnt_head_bwd"], tools["errs"]["bwd"]),
          **{k: bwd[k] for k in keys}, "layout": bwd["layout"],
          "frac_of_ceiling": frac_of_ceiling(bwd["bytes"], bwd["ms"]),
-         "at_56x56": at_56(resnet["bwd"]), "at_56x56_vit": at_56(vit["bwd"])},
+         "at_56x56": at_56(resnet["bwd"]), "at_56x56_vit": at_56(vit["bwd"]),
+         **at_maps("bwd")},
         # ms and the other times: the two calls of one serve step; those of
         # one train step are under by_path.
         {"name": "row_shift", "route": "cuda",
@@ -3370,5 +3762,7 @@ if __name__ == "__main__":
         tp_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--dp-cli"]:
         dp_cli_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--head-layouts"]:
+        head_layouts_main(sys.argv[2])
     else:
         main()

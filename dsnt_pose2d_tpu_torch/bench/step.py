@@ -52,6 +52,7 @@ BENCH_CANVAS.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -101,19 +102,21 @@ def peak_flops() -> float:
     return float(os.environ.get("BENCH_PEAK_FLOPS", H100_BF16_DENSE_FLOPS))
 
 
-def _flagship_config(batch: int, base: str = "hg8", steps_per_dispatch: int = 1):
+def _flagship_config(batch: int, base: str = "hg8", steps_per_dispatch: int = 1,
+                     use_pallas: bool = True, remat: bool = False, warp: str = ""):
     """BASELINE config #3 (hg8, 256 features, bf16 backbone, fused head with
     JS, shear warp, RMSProp); the model's size from the env knobs."""
-    from ..utils.config import Config, ModelConfig, TrainConfig
+    from ..utils.config import Config, DataConfig, ModelConfig, TrainConfig
 
     return Config(
         model=ModelConfig(
             base=base, output_strat="dsnt", reg="js", dtype="bfloat16",
-            use_pallas=True,
+            use_pallas=use_pallas, remat=remat,
             hg_features=int(os.environ.get("BENCH_HG_FEATURES", "256")),
             hg_depth=int(os.environ.get("BENCH_HG_DEPTH", "4")),
             input_size=int(os.environ.get("BENCH_INPUT_SIZE", "0"))),
         train=TrainConfig(batch_size=batch, steps_per_dispatch=steps_per_dispatch),
+        data=DataConfig(warp_method=warp) if warp else DataConfig(),
     )
 
 
@@ -134,22 +137,36 @@ def _last_loss(metrics: dict) -> float:
 
 
 def measure_step(batch: int = 32, iters: int = 20, warmup: int = 3,
-                 repeats: int = 5, base: str = "hg8",
-                 steps_per_dispatch: int = 1, device=DEFAULT_DEVICE,
-                 budget: Budget = NO_BUDGET) -> dict:
+                 repeats: int = 5, use_pallas: bool = True,
+                 remat: bool = False, base: str = "hg8",
+                 steps_per_dispatch: int = 1, warp: str = "",
+                 device=DEFAULT_DEVICE, budget: Budget = NO_BUDGET) -> dict:
     """Repeated two-point measurement of the train step on a batch that is
     already on the device (the counterpart of ``bench.py::measure_tpu``).
 
-    The repeat loop (with the MFU filter's retakes) stops when the budget
-    nears its end, and reports the repeats that landed.
+    ``use_pallas=False`` runs the plain versions of the fused head (the
+    plain ops head) and of ``row_shift``; ``remat`` checkpoints each stack
+    (``torch.utils.checkpoint``); ``warp`` is the warp method (``shear``
+    or ``gather``; empty: the config's default).  The repeat loop (with the
+    MFU filter's retakes) stops when the budget nears its end, and reports
+    the repeats that landed.
     """
+    from ..data.augment import plain_row_shift
+
+    with contextlib.nullcontext() if use_pallas else plain_row_shift():
+        return _measure_step(batch, iters, warmup, repeats, base,
+                             steps_per_dispatch, device, budget,
+                             _flagship_config(batch, base, steps_per_dispatch,
+                                              use_pallas, remat, warp))
+
+
+def _measure_step(batch, iters, warmup, repeats, base, steps_per_dispatch,
+                  device, budget, cfg) -> dict:
     from ..data.synthetic import make_synthetic_mpii
     from ..models.factory import build_pose_model
     from ..train.loop import make_multi_step, make_train_fn
 
     device = resolve_device(device)
-    cfg = _flagship_config(batch, base=base,
-                           steps_per_dispatch=steps_per_dispatch)
     model = build_pose_model(cfg.model, device=device, seed=0)
     k = max(1, steps_per_dispatch)
     canvas = int(os.environ.get("BENCH_CANVAS", "384"))

@@ -6,7 +6,9 @@ events around calls queued behind a ``torch.cuda._sleep`` spin.  No
 profiler: ``torch.profiler`` (torch 2.11, NVIDIA H100 80GB HBM3) has lost
 device activities once a large step had been profiled in the process.
 :func:`time_ms` times windows of calls with CUDA events and no spin, and
-:func:`host_ms` with the host's clock, for tensors on the CPU.
+:func:`host_ms` with the host's clock, for tensors on the CPU;
+:func:`window_s` one window of calls, by CUDA events on a card and the
+host's clock on the CPU (the two-point marginals of the benches).
 """
 
 from __future__ import annotations
@@ -117,6 +119,26 @@ def host_ms(fn, calls: int = BACK_TO_BACK, windows: int = 3) -> tuple[float, dic
         times.append((time.perf_counter() - t0) * 1e3 / calls)
     return statistics.median(times), {"calls_per_window": calls,
                                       "host_clock": True}
+
+
+def window_s(fn, n: int, device) -> float:
+    """Seconds of one window of ``n`` back-to-back ``fn()`` calls: CUDA
+    events around the window on a card (synchronised before and after), the
+    host's clock on the CPU."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / 1e3
 
 
 def kernel_times(fn, plain_fn, library_fn=None) -> dict:

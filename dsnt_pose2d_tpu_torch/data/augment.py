@@ -20,6 +20,7 @@ tests hand both packages the draws that JAX makes.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import strict_fp32
-from ..ops.cuda.row_shift import shift_rows
+from ..ops.cuda.row_shift import shift_rows, shift_rows_reference
 from ..utils.config import DataConfig
 from . import transforms as T
 
@@ -78,6 +79,18 @@ def _row_shift_lerp(rows: torch.Tensor, offsets: torch.Tensor, out_len: int,
     starts = (k.to(torch.int32) + pad_left).clamp(
         0, length // stride - out_len - 1) * stride
     return shift_rows(rows, starts.to(torch.int32), f, out_len * stride, stride)
+
+
+@contextlib.contextmanager
+def plain_row_shift():
+    """Inside the block the shear warp runs row_shift's plain version in
+    place of its kernel, on any device (the bench's plain path)."""
+    global shift_rows
+    kernel, shift_rows = shift_rows, shift_rows_reference
+    try:
+        yield
+    finally:
+        shift_rows = kernel
 
 
 def _resample_matrix(positions: torch.Tensor, in_len: int) -> torch.Tensor:

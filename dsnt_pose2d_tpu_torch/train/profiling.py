@@ -1,6 +1,8 @@
 """Profiling hook for the Trainer (port of
 ``dsnt_pose2d_tpu/train/profiling.py``).
 
+:func:`trace_calls` traces a number of calls of a function (a train step:
+``python -m dsnt_pose2d_tpu_torch.tools.profile_step``).
 :func:`make_profile_hook` captures a ``torch.profiler`` trace of one whole
 epoch (the second by default, so that the first epoch's kernel builds and
 cuDNN's algorithm searches stay out of it) into a directory, as a Chrome
@@ -51,6 +53,22 @@ def make_profile_hook(out_dir: str, epoch_to_trace: int = 1):
 
     hook.close = close
     return hook
+
+
+def trace_calls(fn, calls: int, path: str) -> str:
+    """A Chrome trace of ``calls`` calls of ``fn`` (host and, on the card,
+    device activities; synchronised at the end) written to ``path``."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    prof.export_chrome_trace(path)
+    return path
 
 
 def annotate(name: str):

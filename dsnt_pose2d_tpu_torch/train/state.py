@@ -12,7 +12,9 @@ with a torch optimizer:
 - weight decay is the torch optimizers' ``weight_decay`` (``g + wd * p``
   before the update rule), which is ``add_decayed_weights``;
 - RMSProp is ``torch.optim.RMSprop(alpha=rmsprop_decay, eps=eps)``: eps
-  outside the square root, as the JAX package's ``eps_in_sqrt=False``;
+  outside the square root, as the JAX package's ``eps_in_sqrt=False``; with
+  momentum it is :class:`RMSpropTrace`, whose buffer holds the lr-scaled
+  updates as optax's ``trace`` does;
 - the learning rate of each step is set from the schedule at the chain's
   count before the update, as optax's ``scale_by_learning_rate``.
 """
@@ -76,6 +78,53 @@ def clip_by_global_norm_(tensors, max_norm: float, norm: torch.Tensor):
         t.copy_(torch.where(keep, t, t / norm * max_norm))
 
 
+class RMSpropTrace(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps, eps_in_sqrt=False, momentum=m)``:
+    ``scale_by_rms`` -> ``scale_by_learning_rate`` -> ``trace(m)``, so the
+    momentum buffer holds lr-scaled updates (torch's RMSprop traces the
+    unscaled ones; the two differ once the learning rate changes):
+
+        g   <- g + weight_decay * p              (add_decayed_weights)
+        nu  <- alpha * nu + (1 - alpha) * g^2
+        buf <- momentum * buf + lr * g / (sqrt(nu) + eps)
+        p   <- p - buf
+
+    Its state is torch's names, ``square_avg`` and ``momentum_buffer``.
+    """
+
+    def __init__(self, params, lr: float, alpha: float, eps: float,
+                 momentum: float, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps,
+                                      momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["square_avg"] = torch.zeros_like(p)
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+            nus = [self.state[p]["square_avg"] for p in params]
+            bufs = [self.state[p]["momentum_buffer"] for p in params]
+            torch._foreach_mul_(nus, group["alpha"])
+            torch._foreach_addcmul_(nus, grads, grads, value=1 - group["alpha"])
+            denom = torch._foreach_sqrt(nus)
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(grads, denom)
+            torch._foreach_mul_(updates, group["lr"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, updates)
+            torch._foreach_sub_(params, bufs)
+
+
 class OptimizerChain:
     """clip -> weight decay -> optimizer, with the lr from ``schedule(count)``;
     built by :func:`make_optimizer`."""
@@ -133,15 +182,12 @@ def make_optimizer(params, cfg: OptimConfig, steps_per_epoch: int = 1,
     """The optimizer chain of ``cfg`` over ``params``."""
     params = list(params)
     kw = dict(lr=cfg.lr, weight_decay=cfg.weight_decay)
-    if cfg.optimizer == "rmsprop":
-        if cfg.momentum and cfg.schedule != "constant":
-            # optax traces the lr-scaled update, torch the unscaled one: the
-            # two agree only while the learning rate stays constant.
-            raise NotImplementedError(
-                "rmsprop with momentum under a changing learning rate is not "
-                "ported (torch's momentum buffer would differ from optax's)")
+    if cfg.optimizer == "rmsprop" and cfg.momentum:
+        opt = RMSpropTrace(params, alpha=cfg.rmsprop_decay, eps=cfg.eps,
+                           momentum=cfg.momentum, **kw)
+    elif cfg.optimizer == "rmsprop":
         opt = torch.optim.RMSprop(params, alpha=cfg.rmsprop_decay, eps=cfg.eps,
-                                  momentum=cfg.momentum, **kw)
+                                  **kw)
     elif cfg.optimizer == "adam":
         opt = torch.optim.Adam(params, eps=cfg.eps, **kw)
     elif cfg.optimizer == "sgd":

@@ -120,3 +120,66 @@ def test_flop_count_matches_the_convolutions(dtype):
             h.remove()
     assert len(analytic) == len(convs) > 10
     assert counted == pytest.approx(sum(analytic), rel=1e-2)
+
+
+TINY_STEP = {k: TINY_ENV[k] for k in ("BENCH_HG_FEATURES", "BENCH_HG_DEPTH",
+                                      "BENCH_INPUT_SIZE", "BENCH_CANVAS")}
+
+
+def _counting(calls, key, fn):
+    def wrapped(*args, **kwargs):
+        calls[key] += 1
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["kernels", "plain"])
+def test_measure_step_use_pallas_false_runs_the_plain_versions(use_pallas,
+                                                               monkeypatch):
+    # On the CPU the wrappers run their plain versions anyway; the stubs
+    # count the calls that would launch a kernel on a card.
+    from dsnt_pose2d_tpu_torch.bench.step import measure_step
+    from dsnt_pose2d_tpu_torch.data import augment
+    from dsnt_pose2d_tpu_torch.models import heads
+
+    for k, v in TINY_STEP.items():
+        monkeypatch.setenv(k, v)
+    calls = {"head": 0, "row_shift": 0}
+    monkeypatch.setattr(heads, "fused_dsnt_head",
+                        _counting(calls, "head", heads.fused_dsnt_head))
+    monkeypatch.setattr(augment, "shift_rows",
+                        _counting(calls, "row_shift", augment.shift_rows))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = measure_step(batch=2, iters=1, warmup=1, repeats=1, base="hg1",
+                           use_pallas=use_pallas, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert out["median"] > 0
+    if use_pallas:   # flops + warm-up + 1 + 2 timed steps: 5 steps
+        assert calls == {"head": 5, "row_shift": 10}
+    else:
+        assert calls == {"head": 0, "row_shift": 0}
+    assert augment.shift_rows is not augment.shift_rows_reference
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_measure_step_remat_reaches_torch_checkpoint(remat, monkeypatch):
+    import torch.utils.checkpoint
+
+    from dsnt_pose2d_tpu_torch.bench.step import measure_step
+
+    for k, v in TINY_STEP.items():
+        monkeypatch.setenv(k, v)
+    calls = {"checkpoint": 0}
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", _counting(
+        calls, "checkpoint", torch.utils.checkpoint.checkpoint))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        measure_step(batch=2, iters=1, warmup=1, repeats=1, base="hg1",
+                     remat=remat, warp="gather", device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert (calls["checkpoint"] > 0) == remat

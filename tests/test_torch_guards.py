@@ -36,7 +36,12 @@ NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "models.vit", "native", "ops.cuda.calib", "ops.decode",
                "parallel", "parallel.mesh", "parallel.tp",
                "train.checkpoint", "train.dashboard", "train.metrics",
-               "train.profiling", "utils.visualization")
+               "train.profiling", "utils.visualization", "tools",
+               "tools.ablation_common", "tools.ablation_heads",
+               "tools.ablation_reg", "tools.ablation_resolution",
+               "tools.bench_infer", "tools.dress_rehearsal",
+               "tools.flagship_report", "tools.profile_step",
+               "tools.sweep_train_step")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -181,3 +186,25 @@ def test_clis_default_to_cuda_and_raise_without_it(no_cuda, name, tiny_experimen
         assert not (tmp_path / "e").exists()
     else:
         assert cli.main(argv + ["--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("name", [
+    "ablation_heads", "ablation_reg", "ablation_resolution", "bench_infer",
+    "dress_rehearsal", "flagship_report", "profile_step", "sweep_train_step"])
+def test_drivers_default_to_cuda_and_raise_without_it(no_cuda, name, tmp_path,
+                                                      monkeypatch):
+    import importlib
+
+    from dsnt_pose2d_tpu_torch.tools import ablation_common
+
+    def no_cli(argv, timeout=None):
+        raise AssertionError(f"started {argv} without a card")
+
+    monkeypatch.setattr(ablation_common, "run", no_cli)
+    driver = importlib.import_module(f"dsnt_pose2d_tpu_torch.tools.{name}")
+    argv = {"dress_rehearsal": ["--root", str(tmp_path / "dress")],
+            "bench_infer": [], "profile_step": ["--out", str(tmp_path)],
+            "sweep_train_step": []}.get(name, ["--data-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.main(argv)
+    assert not (tmp_path / "dress").exists()

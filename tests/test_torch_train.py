@@ -178,6 +178,10 @@ def test_optimizer_trajectory_matches_optax(kw):
 
 
 def test_rmsprop_momentum_under_changing_lr_is_refused():
+    # No longer refused: RMSProp with momentum traces the lr-scaled update,
+    # as optax does (held in fp64 in tests/test_torch_optim_momentum.py).
+    from dsnt_pose2d_tpu_torch.train.state import RMSpropTrace
+
     p = torch.nn.Parameter(torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="momentum"):
-        make_optimizer([p], OptimConfig(momentum=0.9, schedule="step"))
+    chain = make_optimizer([p], OptimConfig(momentum=0.9, schedule="step"))
+    assert isinstance(chain.optimizer, RMSpropTrace)
