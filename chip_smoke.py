@@ -39,7 +39,7 @@ process of its own with ``--profile-dir``, ``--dashboard-port`` and
 parallelism: ``cli.train`` on the flagship under
 ``torch.distributed.run --nproc_per_node=1`` (NCCL, world size 1) against
 the same run without a launcher, bitwise; then two ranks sharing the card
-over gloo against one process on the same global batch (bf16 hg8, 3
+over gloo against one process on the same global batch (bf16 hg8, 2
 steps; fp32 hg2 at the flagship's widths, an eval pass, ``predict`` and a
 step), the ranks bitwise equal to each other and held relative to
 one-process runs of the same math in other orders, each rank's head and
@@ -48,15 +48,26 @@ tensor parallelism: two ranks sharing the card over gloo at
 ``model_parallel`` 2 (fp32 hg2 at the flagship's widths, 8 rows), each
 holding its shards of the model, against one process the same way, with
 each rank's shard shapes, its replicated leaves against the other rank's,
-the bytes it holds and the model-axis collectives of a step.  Last,
+the bytes it holds and the model-axis collectives of a step.  Then
 ``tools``: the experiment drivers of ``dsnt_pose2d_tpu_torch/tools/`` over
 the CLIs' synthetic fallback: the heads grid (hg2, dsnt+JS, gauss, fc) as
-``python -m``, the resolution grid's dsnt cells (ResNet-34, dilate 0/1/2:
+``python -m`` (beside it, the conv-core study's process of the
+``studies`` phase), the resolution grid's dsnt cells (ResNet-34, dilate 0/1/2:
 7x7, 14x14, 28x28 maps) and the flagship report in this process with
-their launches counted, the sweep's b16 and b64_nopallas rows,
+their launches counted, the sweep's b16 row,
 bench_infer and profile_step; then each resolution cell's checkpoint
 through its eval and train steps against the plain path, and the head's
-kernels at its map held, timed and their layouts named.
+kernels at its map held, timed and their layouts named.  Then
+``jax_ckpt``: a run of the JAX package converted by
+``tools/jax_ckpt_to_torch.py`` (``tests/fixtures/jax_ckpt_hg1``) through
+the port's ``cli.evaluate`` and ``cli.infer`` and one train step resumed
+from it with JAX's recorded draws, each held against the numbers JAX
+recorded on the CPU (``jax_reference.json``), and that step against the
+plain path.  Last, ``studies``: the five studies of ``tools/`` in one
+short window each (``bench_conv_core`` in a process of its own that runs
+beside the ``tools`` phase's heads grid; ``bench_row_shift``,
+``bench_maxpool``, ``bench_streaming --quick`` at one canvas and
+``close_the_loop`` on an absent tree in this process).
 
 Run from the root of a checkout, with no arguments:
 
@@ -178,13 +189,22 @@ VIT_CONFIG = ROOT / "configs" / "vit_s16_dsnt_2x.json"
 # remat against no remat: each step's median over this many windows, one
 # turn each (the hg8 step takes ~0.6-0.8 s).
 REMAT_REPS = 5              # timed windows each way (the dp phase runs after)
+# Timed windows of the slower steps' medians (the hg8 train step, hg4's
+# heads, the CLIs' eval steps): fewer than timing.REPS (25), to keep the
+# whole script under 1,000 s.
+STEP_REPS = 10
 TELEMETRY_ROWS = 64
 TELEMETRY_TIMEOUT_S = 300
 TELEMETRY_KERNELS = ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift")
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+    """One phase's JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T0}, default=float), flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -973,9 +993,10 @@ def phase_train(dev, card):
         with plain_head(), plain_row_shift():
             return plain_step(batch)
 
-    step_ms = timing.time_ms(lambda: train_step(batch), spread=True)
-    plain_ms = timing.time_ms(plain_train, spread=True)
-    step_ms_2 = timing.time_ms(lambda: train_step(batch), spread=True)
+    step_ms = timing.time_ms(lambda: train_step(batch), spread=True, reps=STEP_REPS)
+    plain_ms = timing.time_ms(plain_train, spread=True, reps=STEP_REPS)
+    step_ms_2 = timing.time_ms(lambda: train_step(batch), spread=True,
+                               reps=STEP_REPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -983,7 +1004,8 @@ def phase_train(dev, card):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     emit("train_step_times", card=card, batch=BATCH, batch_on_device=True,
-         train_ms=step_ms[0], train_img_per_s=BATCH / step_ms[0] * 1e3,
+         timed_windows=STEP_REPS, train_ms=step_ms[0],
+         train_img_per_s=BATCH / step_ms[0] * 1e3,
          plain_path_train_ms=plain_ms[0], train_ms_again=step_ms_2[0],
          spread_min_max_ms={"train": step_ms[1:], "plain_path_train": plain_ms[1:],
                             "train_again": step_ms_2[1:]},
@@ -1686,8 +1708,10 @@ def phase_heads(dev, card):
         shapes = assert_row_shift_bitwise(
             f"heads_{variant}", train["row_shift_calls"][:2] + eval_calls)
         train_step = train["step"]
-        train_ms = timing.time_ms(lambda: train_step(batch), spread=True)
-        eval_ms = timing.time_ms(lambda: eval_step(batch), spread=True)
+        train_ms = timing.time_ms(lambda: train_step(batch), spread=True,
+                                  reps=STEP_REPS)
+        eval_ms = timing.time_ms(lambda: eval_step(batch), spread=True,
+                                 reps=STEP_REPS)
         peak = peak_memory(lambda: train_step(batch))
         profile_step(f"hg4_{variant}_train_step", lambda: train_step(batch),
                      train_ms[0], card)
@@ -2342,10 +2366,10 @@ def phase_cli(dev, card):
 
             # 6. Times: the eval step with flip x 3 scales against the
             # single pass, in turns; predict's img/s.
-            single_ms = timing.time_ms(lambda: single.eval_step(batch), spread=True)
-            flip_ms = timing.time_ms(lambda: flip.eval_step(batch), spread=True)
-            single_ms_2 = timing.time_ms(lambda: single.eval_step(batch), spread=True)
-            flip_ms_2 = timing.time_ms(lambda: flip.eval_step(batch), spread=True)
+            single_ms, flip_ms, single_ms_2, flip_ms_2 = (
+                timing.time_ms(lambda d=d: d.eval_step(batch), spread=True,
+                               reps=STEP_REPS)
+                for d in (single, flip, single, flip))
             infer_driver = drivers[-1]
             predict_s = []
             for _ in range(3):
@@ -2432,7 +2456,7 @@ def phase_cli(dev, card):
 # -- dp: data parallelism ----------------------------------------------------
 
 DP_RANKS = 2
-DP_STEPS = 3               # bf16 train steps held rank against rank
+DP_STEPS = 2               # bf16 train steps held rank against rank
 DP_VAL_ROWS = 40           # odd over 2 ranks of 16: the streams end in pad rows
 DP_FP32_MODEL = {"base": "hg2", "dtype": "float32"}   # the flagship's widths
 # Each rank step is held against one process taking the same step on the
@@ -2929,7 +2953,7 @@ def dp_hold(kind, ranks, witnesses) -> dict:
 def phase_dp(dev, card):
     """Data parallelism on the card: the NCCL world-size-1 ``cli.train``
     against the plain run; then 2 ranks on the one card over gloo (bf16 hg8
-    at full width, 3 steps; fp32 hg2 at the flagship's widths with TF32
+    at full width, DP_STEPS steps; fp32 hg2 at the flagship's widths with TF32
     off, 1 step, after an eval pass and ``predict`` over DP_VAL_ROWS rows),
     each rank's kernel calls against their plain versions, and each rank
     step against one process's step on the same global batch from the same
@@ -3254,10 +3278,10 @@ def phase_tp(dev, card):
 TOOLS_EPOCHS = 1
 TOOLS_DILATES = (0, 1, 2)   # 7x7, 14x14, 28x28 maps at the ResNet's 224 px
 TOOLS_FLAGSHIP_EPOCHS = 3          # the report's steady state skips 0-1
-TOOLS_SWEEP = ("b16", "b64_nopallas")
+TOOLS_SWEEP = ("b16",)
 TOOLS_SWEEP_KW = {"iters": 1, "repeats": 1}
-TOOLS_INFER = ["--bases", "hg2,resnet50", "--repeats", "2", "--iters", "1"]
-TOOLS_PROFILE = ["--steps", "3", "--batch", "16", "--warp", "shear"]
+TOOLS_INFER = ["--bases", "hg2", "--repeats", "2", "--iters", "1"]
+TOOLS_PROFILE = ["--steps", "1", "--batch", "16", "--warp", "shear"]
 TOOLS_TIMEOUT_S = 600
 # Kernel launches of one cell of the in-process grids, from the code: the
 # synthetic fallback's 256 train rows (drop_last) and 64 val rows; a train
@@ -3453,10 +3477,12 @@ def tools_finish(proc, name) -> str:
     return out
 
 
-def phase_tools(dev, card, ceiling):
+def phase_tools(dev, card, ceiling, conv_core):
     """The experiment drivers (see TOOLS_* above).  Returns the launches of
     the in-process runs (the resolution grid and the flagship report), the
-    head kernels' largest errors at the grid's maps, and the maps' records."""
+    head kernels' largest errors at the grid's maps, the maps' records, and
+    the output of ``conv_core`` (the conv-core study's process, which runs
+    beside the heads grid; waited for before the kernel holds)."""
     import tempfile
 
     from dsnt_pose2d_tpu_torch.ops import cuda as kernels
@@ -3541,6 +3567,8 @@ def phase_tools(dev, card, ceiling):
             done("profile_step", t0)
             tools_finish(heads, "ablation_heads")
             done("heads", t_heads)
+            conv_out = tools_finish(conv_core, "bench_conv_core")
+            done("conv_core_study", t_heads)
         finally:
             if heads.poll() is None:
                 heads.kill()
@@ -3618,7 +3646,270 @@ def phase_tools(dev, card, ceiling):
          tolerance={"eval": STEP_TOL, "train": TRAIN_TOL, "head": HEAD_TOL,
                     "head_bwd": HEAD_BWD_TOL},
          clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
-    return {"launches": total, "errs": errs, "maps": cells}
+    return {"launches": total, "errs": errs, "maps": cells,
+            "conv_core_output": conv_out}
+
+
+JAX_CKPT_FIXTURE = ROOT / "tests" / "fixtures" / "jax_ckpt_hg1"
+# tests/test_torch_jax_ckpt_cli.py's tolerances: a joint's PCKh count may
+# differ only where a row's JAX distance lies this near the threshold;
+# preds in original px; the fp32 train step's (tests/test_torch_train_step.py).
+JAX_CKPT_TOL = {"dist_margin": 1e-5, "pred_atol_px": 1e-4, "eval_loss_rtol": 1e-4,
+                "step_loss_rtol": 1e-4, "grad_norm_rtol": 2e-2}
+JAX_CKPT_STEP_LAUNCHES = {"dsnt_head_fwd": 1, "dsnt_head_bwd": 1, "row_shift": 2}
+
+
+def jax_ckpt_distances(preds) -> np.ndarray:
+    """``|pred - true| / head_length`` over the fixture's 8 synthetic val
+    rows (``cli.common.make_datasets``' split), NaN where not visible."""
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+
+    val = make_synthetic_mpii(8, canvas_size=96, seed=2)
+    d = np.linalg.norm(np.asarray(preds, np.float64) - val["coords_px"], axis=-1)
+    return np.where(val["mask"] > 0, d / val["head_length"][:, None], np.nan)
+
+
+def phase_jax_ckpt(dev, card):
+    """A run of the JAX package, converted by ``tools/jax_ckpt_to_torch.py``
+    (``tests/fixtures/jax_ckpt_hg1``: hg1 at 32 features, 64 px, fp32, the
+    fused head with JS), through the port's ``cli.evaluate`` and
+    ``cli.infer`` (with and without ``--flip-eval``) and one train step
+    resumed from it with JAX's recorded draws, each held against the
+    numbers JAX recorded on the CPU (``jax_reference.json``), TF32 off; then
+    that step against the plain path."""
+    import io
+    import tempfile
+
+    from scipy.io import loadmat
+
+    from dsnt_pose2d_tpu_torch.cli import evaluate as evaluate_cli
+    from dsnt_pose2d_tpu_torch.cli import infer as infer_cli
+    from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+    from dsnt_pose2d_tpu_torch.device import strict_fp32
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.checkpoint import CheckpointManager
+    from dsnt_pose2d_tpu_torch.train.loop import EvalDriver, make_train_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ref = json.loads((JAX_CKPT_FIXTURE / "jax_reference.json").read_text())
+    drivers = []
+
+    class RecordingDriver(EvalDriver):
+        def evaluate(self, *args, **kw):
+            self.result = super().evaluate(*args, **kw)
+            drivers.append(self)
+            return self.result
+
+    def add(total, counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    launches, held = {}, {}
+    saved = evaluate_cli.EvalDriver, infer_cli.EvalDriver
+    evaluate_cli.EvalDriver = infer_cli.EvalDriver = RecordingDriver
+    model_dir = ["--model-dir", str(JAX_CKPT_FIXTURE), "--device", dev.type]
+    try:
+        with strict_fp32(), tempfile.TemporaryDirectory(prefix="dsnt_jax_ckpt_") as tmp:
+            for key, extra in (("evaluate", []), ("evaluate_flip", ["--flip-eval"])):
+                exp = ref[key]
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    assert evaluate_cli.main(model_dir + extra) == 0
+                    mat = os.path.join(tmp, f"{key}.mat")
+                    assert infer_cli.main(model_dir + extra + ["--preds-file", mat]) == 0
+                torch.cuda.synchronize()
+                add(launches, kernels.launch_counts())
+                result = drivers[-1].result
+                preds = loadmat(mat)["preds"]
+                jd = np.asarray(exp["norm_dist"], np.float64)
+                near = np.nansum(np.abs(jd - 0.5) < JAX_CKPT_TOL["dist_margin"], axis=0) > 0
+                counts_differ = result["evaluator"].correct != np.asarray(exp["correct"])
+                dist_err = float(np.nanmax(np.abs(jax_ckpt_distances(preds) - jd)))
+                pred_err = float(np.abs(preds - np.asarray(exp["preds"])).max())
+                loss_rel = abs(result["loss"] - exp["loss"]) / abs(exp["loss"])
+                table = [l for l in out.getvalue().splitlines() if l.startswith("  ")]
+                if ((counts_differ & ~near).any()
+                        or not np.array_equal(result["evaluator"].total, exp["total"])
+                        or dist_err > JAX_CKPT_TOL["dist_margin"]
+                        or pred_err > JAX_CKPT_TOL["pred_atol_px"]
+                        or loss_rel > JAX_CKPT_TOL["eval_loss_rtol"]):
+                    raise AssertionError(
+                        f"jax_ckpt {key}: counts {result['evaluator'].correct} vs JAX "
+                        f"{exp['correct']} (near the threshold: {near}), distance "
+                        f"err {dist_err}, preds err {pred_err} px, loss rel {loss_rel}")
+                held[key] = {"pckh": result["pckh"], "counts_equal": not counts_differ.any(),
+                             "joints_near_threshold": int(near.sum()),
+                             "table_equal": table == [l for l in exp["table"].splitlines()
+                                                      if l.startswith("  ")],
+                             "max_distance_err": dist_err, "max_pred_err_px": pred_err,
+                             "loss_rel_diff": loss_rel}
+
+            # The resumed step: the fixture's state, JAX's rows and draws.
+            step_ref = ref["resumed_step"]
+            ckpt = CheckpointManager(str(JAX_CKPT_FIXTURE))
+            cfg = ckpt.load_config()
+            syn = step_ref["synthetic"]
+            rows = make_synthetic_mpii(syn["num_samples"], canvas_size=syn["canvas"],
+                                       seed=syn["seed"])
+            batch = {k: torch.from_numpy(v[step_ref["rows"]]).to(dev)
+                     for k, v in rows.items()}
+            npz = np.load(JAX_CKPT_FIXTURE / "resumed_step.npz")
+            draws = {k: torch.from_numpy(npz[k]) if k in npz.files else None
+                     for k in ("rot", "scale", "flip", "jitter")}
+            model = build_pose_model(cfg.model, device=dev)
+            step = make_train_fn(model, cfg, device=dev)
+            state, meta = ckpt.restore(step.state, epoch=0)
+            assert state is step.state and state.step == step_ref["step"], meta
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = step(batch, draws=draws)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if {k: v for k, v in counts.items() if v} != JAX_CKPT_STEP_LAUNCHES:
+                raise AssertionError(f"jax_ckpt resumed step launches {counts}")
+            add(launches, counts)
+            rel = {k: abs(got[k].item() - step_ref[k]) / abs(step_ref[k])
+                   for k in ("loss", "euclidean", "reg")}
+            rel["grad_norm_vs_bn64"] = (abs(got["grad_norm"].item() - step_ref["grad_norm_bn64"])
+                                        / step_ref["grad_norm_bn64"])
+            if (max(rel[k] for k in ("loss", "euclidean", "reg")) > JAX_CKPT_TOL["step_loss_rtol"]
+                    or rel["grad_norm_vs_bn64"] > JAX_CKPT_TOL["grad_norm_rtol"]):
+                raise AssertionError(f"jax_ckpt resumed step vs JAX: {rel}")
+            assert state.step == state.optimizer.count == step_ref["step"] + 1
+
+            # The same weights' step against the plain head and row_shift.
+            fresh = build_pose_model(cfg.model, device=dev)
+            ckpt.restore(make_train_fn(fresh, cfg, device=dev).state, epoch=0)
+            vs_plain = train_vs_plain(fresh, cfg, batch, dev, 1, JAX_CKPT_STEP_LAUNCHES)
+            add(launches, vs_plain["launches"])
+    finally:
+        evaluate_cli.EvalDriver, infer_cli.EvalDriver = saved
+    for k in ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift"):
+        assert launches.get(k, 0) > 0, launches
+    emit("jax_ckpt", card=card, fixture=str(JAX_CKPT_FIXTURE.relative_to(ROOT)),
+         jax=ref["jax"], evaluate=held,
+         resumed_step={"step": step_ref["step"], "loss": got["loss"].item(),
+                       "jax_loss": step_ref["loss"],
+                       "grad_norm": got["grad_norm"].item(),
+                       "jax_grad_norm_bn64": step_ref["grad_norm_bn64"],
+                       "rel_diff": rel, "launches": counts},
+         train_vs_plain=vs_plain["plain_path"], launches=launches,
+         tolerance=JAX_CKPT_TOL, wall_s=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
+STUDY_ITERS = 10             # calls a timing window in the row_shift and pool studies
+STUDY_STREAMING = {"quick": True, "canvases": (384,),
+                   "h2d_kw": {"repeats": 2}, "step_kw": {"iters": 2, "repeats": 1},
+                   "e2e_kw": {"repeats": 1, "epoch_steps": 4}}
+STUDY_CONV_CORE = ("import json\n"
+                   "from dsnt_pose2d_tpu_torch.tools.bench_conv_core import run\n"
+                   "print('REPORT ' + json.dumps(run(repeats=1, iters=2, "
+                   "device='cuda', log=lambda s: None)))\n")
+
+
+def start_conv_core_study():
+    """``bench_conv_core`` (one window a case) in a process of its own,
+    started with the ``tools`` phase so that it runs beside the heads
+    grid's process: a Popen that :func:`phase_tools` waits for before its
+    kernel holds, which run alone on the card."""
+    return subprocess.Popen([sys.executable, "-c", STUDY_CONV_CORE], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def phase_studies(dev, card, conv_out):
+    """The five studies of ``dsnt_pose2d_tpu_torch/tools/`` in one short
+    window each: ``bench_conv_core`` (its cases are processes of their own)
+    in a process of its own (started with ``tools``, beside the heads
+    grid), then in this process (counted)
+    ``bench_row_shift`` at the JAX tool's two shapes, ``bench_maxpool`` at
+    its five, ``bench_streaming --quick`` at one canvas, and
+    ``close_the_loop`` on an absent tree.  Their times are checks, not
+    measurements: the studies share the card.  ``conv_out``: the output
+    of the conv-core study's process (:func:`start_conv_core_study`)."""
+    import tempfile
+
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.tools import (bench_maxpool, bench_row_shift,
+                                             bench_streaming, close_the_loop)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    walls = {}
+    quiet = lambda line: None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    shift = bench_row_shift.run(STUDY_ITERS, dev, log=quiet)
+    walls["row_shift"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = bench_maxpool.run(16, STUDY_ITERS, dev, log=quiet)
+    walls["maxpool"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = bench_streaming.run(16, device=dev, log=quiet, **STUDY_STREAMING)
+    walls["streaming"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    with tempfile.TemporaryDirectory(prefix="dsnt_closure_") as tmp:
+        report = os.path.join(tmp, "closure.json")
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = close_the_loop.main(["--reference", os.path.join(tmp, "absent"),
+                                      "--out", report, "--device", dev.type])
+        with open(report) as f:
+            closure = json.load(f)
+    (line,) = [l for l in conv_out.splitlines() if l.startswith("REPORT ")]
+    conv_core = json.loads(line[len("REPORT "):])
+
+    for rec in shift["cases"]:
+        if rec["max_abs_vec_minus_legacy"] or rec["max_abs_vec_minus_plain"]:
+            raise AssertionError(f"row_shift study: {rec}")
+    if [(r["rows"], r["l"], r["out"], r["stride"]) for r in shift["cases"]] != \
+            bench_row_shift.CASES:
+        raise AssertionError("row_shift study cases")
+    if not all(r["fwd_equal"] and r["every_difference_in_a_tie"] for r in pool):
+        raise AssertionError(f"maxpool study: {pool}")
+    doc = tools_doc("bench_streaming.json")
+    if set(stream) != set(doc) | {"h2d_pageable"} or any(
+            set(c) != set(doc["streaming"][0]) for c in stream["streaming"]):
+        raise AssertionError(f"streaming study keys {sorted(stream)}")
+    doc = tools_doc("bench_conv_core.json")
+    cases = [k for k in conv_core if k != "winner_b16"]
+    if cases[:4] != ["baseline_b16", "cudnn_benchmark_b16", "channels_last_b16",
+                     "baseline_b32"]:
+        raise AssertionError(f"conv-core cases {cases}")
+    for name in cases:
+        rec = conv_core[name]
+        if "error" in rec or not (rec.get("not_propagated")
+                                  or set(doc["baseline_b16"]) <= set(rec)):
+            raise AssertionError(f"conv-core {name}: {rec}")
+    same_keys(closure, tools_doc("reference_closure_report.json"), "close_the_loop")
+    if rc != 0 or closure["census"] != {"n_files": 0}:
+        raise AssertionError(f"close_the_loop on an absent tree: rc {rc}, {closure}")
+    for k in ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift", "calib_copy"):
+        assert launches.get(k, 0) > 0, launches
+    emit("studies", card=card, wall_s=time.perf_counter() - t_phase, walls_s=walls,
+         beside="bench_conv_core's processes ran beside the tools phase's "
+                "heads grid: their times are checks, not measurements",
+         row_shift=[{k: r[k] for k in ("rows", "l", "out", "speedup",
+                                       "max_abs_vec_minus_legacy")}
+                    | {i: r[i]["ms"] for i in ("legacy", "vec")} for r in shift["cases"]],
+         copy_ceiling_GBps=shift["copy_ceiling_GBps"],
+         maxpool=[{k: r[k] for k in ("shape", "window_ms", "reshape_ms", "fwd_equal",
+                                     "max_abs_grad_diff", "tied_windows")} for r in pool],
+         streaming=stream,
+         conv_core={k: v if k == "winner_b16" else
+                    {kk: v.get(kk) for kk in ("median", "step_ms", "propagated",
+                                              "not_propagated")}
+                    for k, v in conv_core.items()},
+         closure=closure, launches=launches)
+    return {"launches": launches}
 
 
 def main():
@@ -3670,13 +3961,22 @@ def main():
     # Last: their ranks and CLI runs are processes of their own.
     dp = phase_dp(dev, card)
     tp = phase_tp(dev, card)
-    tools = phase_tools(dev, card, ceiling)
+    conv_core = start_conv_core_study()
+    try:
+        tools = phase_tools(dev, card, ceiling, conv_core)
+    finally:
+        if conv_core.poll() is None:
+            conv_core.kill()
+            conv_core.communicate()
+    jax_ckpt = phase_jax_ckpt(dev, card)
+    studies = phase_studies(dev, card, tools["conv_core_output"])
     paths = {"serve": serve_launches, "train": train_launches,
              "bench": bench_launches, "trainer": trainer_launches,
              "cli": cli_launches, "resnet": resnet["launches"],
              "heads": heads_launches, "vit": vit["launches"],
              "remat": remat_launches, "dp": dp["launches"], "tp": tp["launches"],
-             "tools": tools["launches"]}
+             "tools": tools["launches"], "jax_ckpt": jax_ckpt["launches"],
+             "studies": studies["launches"]}
 
     def launches(name):
         by_path = {p: counts.get(name, 0) for p, counts in paths.items()}

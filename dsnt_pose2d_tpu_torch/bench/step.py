@@ -140,16 +140,19 @@ def measure_step(batch: int = 32, iters: int = 20, warmup: int = 3,
                  repeats: int = 5, use_pallas: bool = True,
                  remat: bool = False, base: str = "hg8",
                  steps_per_dispatch: int = 1, warp: str = "",
-                 device=DEFAULT_DEVICE, budget: Budget = NO_BUDGET) -> dict:
+                 channels_last: bool = False, device=DEFAULT_DEVICE,
+                 budget: Budget = NO_BUDGET) -> dict:
     """Repeated two-point measurement of the train step on a batch that is
     already on the device (the counterpart of ``bench.py::measure_tpu``).
 
     ``use_pallas=False`` runs the plain versions of the fused head (the
     plain ops head) and of ``row_shift``; ``remat`` checkpoints each stack
     (``torch.utils.checkpoint``); ``warp`` is the warp method (``shear``
-    or ``gather``; empty: the config's default).  The repeat loop (with the
-    MFU filter's retakes) stops when the budget nears its end, and reports
-    the repeats that landed.
+    or ``gather``; empty: the config's default); ``channels_last`` puts the
+    model's weights in the channels-last memory format (a lever of
+    ``tools/bench_conv_core.py``; the train path keeps the default format).
+    The repeat loop (with the MFU filter's retakes) stops when the budget
+    nears its end, and reports the repeats that landed.
     """
     from ..data.augment import plain_row_shift
 
@@ -157,17 +160,20 @@ def measure_step(batch: int = 32, iters: int = 20, warmup: int = 3,
         return _measure_step(batch, iters, warmup, repeats, base,
                              steps_per_dispatch, device, budget,
                              _flagship_config(batch, base, steps_per_dispatch,
-                                              use_pallas, remat, warp))
+                                              use_pallas, remat, warp),
+                             channels_last)
 
 
 def _measure_step(batch, iters, warmup, repeats, base, steps_per_dispatch,
-                  device, budget, cfg) -> dict:
+                  device, budget, cfg, channels_last=False) -> dict:
     from ..data.synthetic import make_synthetic_mpii
     from ..models.factory import build_pose_model
     from ..train.loop import make_multi_step, make_train_fn
 
     device = resolve_device(device)
     model = build_pose_model(cfg.model, device=device, seed=0)
+    if channels_last:
+        model.net.to(memory_format=torch.channels_last)
     k = max(1, steps_per_dispatch)
     canvas = int(os.environ.get("BENCH_CANVAS", "384"))
     data = {key: torch.from_numpy(v).to(device) for key, v in

@@ -12,7 +12,9 @@ their names and layout.  The variables are nested dicts of numpy arrays
 (``params``, and ``batch_stats`` where the model has BN; a ViT has none);
 numpy only, so it needs no JAX at run time.  flax's ``nn.remat`` keeps the
 module names, so variables of a model made with ``remat=True`` map the
-same.  :func:`pose_net_from_jax` picks the walk by the config's base.
+same.  :func:`pose_net_from_jax` picks the walk by the config's base;
+:func:`params_from_jax` walks a parameter-shaped tree alone (an optimizer's
+moments), with the same transforms and no BN statistics.
 """
 
 from __future__ import annotations
@@ -25,9 +27,22 @@ def _conv(kernel) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
+class _NoStats:
+    """The batch statistics of a params-only walk: every lookup gives it
+    back, and :func:`_put_bn` writes no running statistics for it."""
+
+    def __getitem__(self, key):
+        return self
+
+    def get(self, key, default=None):
+        return self
+
+
 def _put_bn(out: dict, prefix: str, p: dict, bs: dict):
     out[f"{prefix}.weight"] = np.asarray(p["scale"])
     out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    if isinstance(bs, _NoStats):
+        return
     out[f"{prefix}.running_mean"] = np.asarray(bs["mean"])
     out[f"{prefix}.running_var"] = np.asarray(bs["var"])
     out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
@@ -152,3 +167,10 @@ def pose_net_from_jax(variables: dict, cfg) -> dict:
         if name in variables["params"]:
             out[name] = np.asarray(variables["params"][name])
     return out
+
+
+def params_from_jax(params: dict, cfg) -> dict:
+    """A tree shaped as the flax ``PoseNet``'s ``params`` of ``cfg`` (the
+    parameters themselves, or an optimizer moment of them) -> the port's
+    parameter names, each leaf under the transform of its parameter."""
+    return pose_net_from_jax({"params": params, "batch_stats": _NoStats()}, cfg)

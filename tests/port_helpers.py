@@ -26,6 +26,27 @@ def perturb(variables, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
 
 
+@contextlib.contextmanager
+def bn_statistics_in_fp64():
+    """flax's train-mode BatchNorm with its batch mean and variance computed
+    in fp64 (under ``jax.enable_x64``) and cast back to the input's dtype;
+    everything else in the network stays as it was (the reference norm of
+    ``tests/test_torch_train_step.py``'s fp32 step)."""
+    import flax.linen.normalization as flax_norm
+
+    base = flax_norm._compute_stats
+
+    def stats(x, axes, dtype, *args, **kwargs):
+        mean, var = base(x.astype(jnp.float64), axes, jnp.float64, *args, **kwargs)
+        return mean.astype(x.dtype), var.astype(x.dtype)
+
+    flax_norm._compute_stats = stats
+    try:
+        yield
+    finally:
+        flax_norm._compute_stats = base
+
+
 def jax_train_draws(key, batch: int, cfg) -> dict:
     """The train augmentation draws that the JAX package's ``preprocess_batch``
     makes from ``key`` (the train branch's draws and the color jitter of

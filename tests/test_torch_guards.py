@@ -41,7 +41,10 @@ NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "tools.ablation_reg", "tools.ablation_resolution",
                "tools.bench_infer", "tools.dress_rehearsal",
                "tools.flagship_report", "tools.profile_step",
-               "tools.sweep_train_step")
+               "tools.sweep_train_step", "train.from_jax",
+               "tools.bench_row_shift", "tools.bench_maxpool",
+               "tools.bench_streaming", "tools.bench_conv_core",
+               "tools.close_the_loop")
 
 
 def test_importing_every_module_loads_no_jax():

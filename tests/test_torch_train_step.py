@@ -38,10 +38,8 @@ and 95% of the elements within 5% of a full step (measured 98.3%).
 The exact update is held in fp64.
 """
 
-import contextlib
 from types import SimpleNamespace
 
-import flax.linen.normalization as flax_norm
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,7 +63,7 @@ from dsnt_pose2d_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
 from dsnt_pose2d_tpu_torch.train.state import make_optimizer
 from dsnt_pose2d_tpu_torch.utils import config as tconfig
-from port_helpers import jax_train_draws, perturb
+from port_helpers import bn_statistics_in_fp64, jax_train_draws, perturb
 
 STACKS, FEATS, J, SIZE, BATCH, SIGMA = 2, 32, 16, 64, 4, 1.0
 
@@ -171,24 +169,6 @@ MODEL_KW = dict(base="hg2", hg_features=FEATS, input_size=SIZE, dtype="float32",
                 reg="js", use_pallas=True)
 
 
-@contextlib.contextmanager
-def _bn_statistics_in_fp64():
-    """flax's train-mode BatchNorm with its batch mean and variance computed
-    in fp64 (under ``jax.enable_x64``) and cast back to the input's dtype;
-    everything else in the network stays as it was."""
-    base = flax_norm._compute_stats
-
-    def stats(x, axes, dtype, *args, **kwargs):
-        mean, var = base(x.astype(jnp.float64), axes, jnp.float64, *args, **kwargs)
-        return mean.astype(x.dtype), var.astype(x.dtype)
-
-    flax_norm._compute_stats = stats
-    try:
-        yield
-    finally:
-        flax_norm._compute_stats = base
-
-
 @pytest.fixture(scope="module")
 def fp32_step():
     jcfg = jconfig.Config(model=jconfig.ModelConfig(**MODEL_KW),
@@ -225,7 +205,7 @@ def fp32_step():
 
     norm_fp32 = float(optax.global_norm(jax.jit(jax.grad(loss_fn))(
         variables["params"])))
-    with jax.enable_x64(True), _bn_statistics_in_fp64():
+    with jax.enable_x64(True), bn_statistics_in_fp64():
         norm_bn64 = float(optax.global_norm(jax.jit(jax.grad(loss_fn))(
             variables["params"])))
 
