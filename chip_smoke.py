@@ -280,6 +280,46 @@ def _short_name(mangled: str, demangled: str) -> str:
     return name.split("(", 1)[0] if name != mangled else name
 
 
+def layout_of(instance: str) -> str:
+    """The layout of a head kernel's instance, its last template argument
+    (``dsnt_head_bwd_kernel<1, false, Slots<16>>`` -> ``Slots<16>``)."""
+    last = instance.rsplit(", ", 1)[-1].removesuffix(">")   # c++filt: "<16> >"
+    return last.replace("(int)", "").strip()
+
+
+def head_layout_for(h, w) -> str:
+    """The layout dsnt_head.cu gives both head kernels for an h x w row at
+    a 16-byte aligned base (``with_layout``)."""
+    if (h, w) == (64, 64):
+        return "Map64"
+    hw = h * w
+    return ("WarpRow" if hw <= 256 else "Slots<4>" if hw <= 1024
+            else "Slots<16>" if hw <= 4096 else "AnyMap or StagedRow")
+
+
+# The head's layouts for rows of up to 4,096 values other than an aligned
+# 64x64 one (dsnt_head.cu): none of their instances may spill registers.
+HEAD_ROW_LAYOUTS = ("WarpRow", "Slots<4>", "Slots<16>")
+
+
+def head_ptxas_by_layout(report: dict) -> dict:
+    """``ptxas_report("dsnt_head")`` summed up by kernel and layout:
+    instances, the most registers a thread, the largest stack frame and
+    the spill bytes (stores + loads) over the instances."""
+    out = {}
+    for name, r in report.items():
+        if not name.startswith("dsnt_head_"):
+            continue
+        key = f"{name.split('<', 1)[0]} {layout_of(name)}"
+        o = out.setdefault(key, {"instances": 0, "max_registers": 0,
+                                 "max_stack": 0, "spill_bytes": 0})
+        o["instances"] += 1
+        o["max_registers"] = max(o["max_registers"], r.get("registers", 0))
+        o["max_stack"] = max(o["max_stack"], r.get("stack", 0))
+        o["spill_bytes"] += r.get("spill_stores", 0) + r.get("spill_loads", 0)
+    return out
+
+
 def _demangle(names: list) -> dict:
     """Mangled -> readable kernel names (``c++filt``), or the names as they
     are where it is missing."""
@@ -353,7 +393,14 @@ def phase_build():
         build.load(name)
     emit("build", sources=list(build.SOURCES), compile_s=took,
          total_s=time.perf_counter() - t0, flags=list(build.NVCC_FLAGS))
-    emit("build_ptxas", per_source={n: ptxas_report(n) for n in build.SOURCES})
+    per_source = {n: ptxas_report(n) for n in build.SOURCES}
+    head = head_ptxas_by_layout(per_source["dsnt_head"])
+    spills = {k: v["spill_bytes"] for k, v in head.items()
+              if k.split(" ", 1)[1] in HEAD_ROW_LAYOUTS and v["spill_bytes"]}
+    emit("build_ptxas", per_source=per_source, head_by_layout=head)
+    if spills or not all(f"dsnt_head_{k}_kernel {lay}" in head
+                         for k in ("fwd", "bwd") for lay in HEAD_ROW_LAYOUTS):
+        raise AssertionError(f"head layouts missing or spilling: {spills}")
     emit("build_sass", instructions={n: sass_counts(n) for n in build.SOURCES})
 
 
@@ -1063,9 +1110,7 @@ def phase_head_bwd_on_main_path(train, card):
                              "inputs differ")
     # The layout the train step's backward ran in, from its profile's
     # kernel names ("dsnt_head_bwd_kernel<1, false, Map64>").
-    layouts = {name.rsplit(", ", 1)[-1].rstrip(">")
-               for name in train["profile_instances"]
-               if name.startswith("dsnt_head_bwd_kernel<")}
+    layouts = head_layouts_ran(train["profile_instances"], "bwd")
     if layouts != {"Map64"}:
         raise AssertionError(f"the train step's head backward ran in "
                              f"{layouts}, not the 64x64 layout")
@@ -1196,11 +1241,11 @@ def peak_memory(fn) -> int:
     return torch.cuda.max_memory_allocated()
 
 
-def bwd_layouts(instances) -> set:
-    """The layouts of the head backward's instances in a profile
-    (``dsnt_head_bwd_kernel<1, false, StagedRow>`` -> ``StagedRow``)."""
-    return {name.rsplit(", ", 1)[-1].rstrip(">") for name in instances
-            if name.startswith("dsnt_head_bwd_kernel<")}
+def head_layouts_ran(instances, kind) -> set:
+    """The layouts of the head's ``kind`` (fwd, bwd) instances in a profile
+    (``dsnt_head_bwd_kernel<1, false, Slots<16>>`` -> ``Slots<16>``)."""
+    return {layout_of(name) for name in instances
+            if name.startswith(f"dsnt_head_{kind}_kernel<")}
 
 
 def head_on_rows(heat, t, reg, preact, ceiling, gc=None, dheat=None):
@@ -1270,10 +1315,9 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
     """A config #5 model (56x56 heatmaps, DSNT without a regularizer) from
     seed 0 at batch 32 on 672-px canvases: the eval and infer steps and the
     train step, counted and held against their plain paths, timed, peak
-    memory and a profiled train step whose head backward must be
-    StagedRow; the head at 512 rows of 56x56 (forward AnyMap, backward
-    StagedRow) and row_shift at the 448-px calls, held and timed on the
-    path's inputs.  Returns the launches and readings, and the model (its
+    memory and a profiled train step whose head forward and backward must
+    run in Slots<16>; the head at 512 rows of 56x56 and row_shift at the
+    448-px calls, held and timed on the path's inputs.  Returns the launches and readings, and the model (its
     weights after the timed steps) and the batch."""
     from dsnt_pose2d_tpu_torch.bench import timing
     from dsnt_pose2d_tpu_torch.data.augment import preprocess_batch
@@ -1341,9 +1385,10 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
     train_peak = peak_memory(lambda: train_step(batch))
     instances = profile_step(f"{phase}_train_step", lambda: train_step(batch),
                              train_ms[0], card)
-    if bwd_layouts(instances) != {"StagedRow"}:
-        raise AssertionError(f"the {phase} train step's head backward ran in "
-                             f"{bwd_layouts(instances)}, not StagedRow")
+    ran = {k: head_layouts_ran(instances, k) for k in ("fwd", "bwd")}
+    if ran != {"fwd": {"Slots<16>"}, "bwd": {"Slots<16>"}}:
+        raise AssertionError(f"the {phase} train step's head ran in {ran}, "
+                             f"not Slots<16>")
 
     # The head's backward on the train step's first heatmaps, with the
     # cotangent of the step's loss (reg none: the coords' only).
@@ -1366,8 +1411,7 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
     (gc_,) = torch.autograd.grad(loss, (coords,))
     _, bwd = head_on_rows(heat_t, t_t, "none", m.preact, ceiling, gc=gc_,
                           dheat=train["dheat"])
-    bwd["layout"] = "StagedRow"
-    fwd["layout"] = "AnyMap"
+    bwd["layout"] = fwd["layout"] = "Slots<16>"
 
     recorded = {f"{phase}_serve": {(*c[0].shape, c[3]): c for c in serve_calls[:2]},
                 f"{phase}_train": {(*c[0].shape, c[3]): c
@@ -1392,7 +1436,8 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
          spread_min_max_ms={"infer": infer_ms[1:], "eval": eval_ms[1:],
                             "train": train_ms[1:]},
          peak_mem_bytes={"infer": serve_peak, "train": train_peak},
-         head_fwd_56=fwd, head_bwd_56=bwd, train_bwd_layouts=sorted(bwd_layouts(instances)),
+         head_fwd_56=fwd, head_bwd_56=bwd,
+         train_head_layouts={k: sorted(v) for k, v in ran.items()},
          row_shift={"shapes": shapes, "by_path": shift, "library_err": shift_lib_err,
                     "bitwise_equal": True},
          ceiling_GB_per_s=ceiling,
@@ -3351,10 +3396,10 @@ def head_layouts_main(spec: str):
             raise RuntimeError(f"no profile of the head at {h}x{w} named both "
                                f"kernels in {PROFILE_ATTEMPTS} attempts")
         out[f"{h}x{w}"] = {"instances": sorted(names), "profiles": attempt,
-                           "fwd": next(n.rsplit(", ", 1)[-1].rstrip(">")
-                                       for n in names if "fwd" in n),
-                           "bwd": next(n.rsplit(", ", 1)[-1].rstrip(">")
-                                       for n in names if "bwd" in n)}
+                           "fwd": next(layout_of(n) for n in names
+                                       if "fwd" in n),
+                           "bwd": next(layout_of(n) for n in names
+                                       if "bwd" in n)}
     print(json.dumps(out), flush=True)
 
 
@@ -3618,6 +3663,10 @@ def phase_tools(dev, card, ceiling, conv_core):
                                 for c in cells.values()])
         for key, c in cells.items():
             c["layout"] = layouts[key]
+            want = head_layout_for(*c["head"]["hw"])
+            if (layouts[key]["fwd"], layouts[key]["bwd"]) != (want, want):
+                raise AssertionError(f"the head at {key} ran in "
+                                     f"{layouts[key]}, not {want}")
         done("layouts", t0)
 
     total = {}
@@ -3823,6 +3872,33 @@ def start_conv_core_study():
                             text=True)
 
 
+def row_shift_at_study_shapes(dev) -> dict:
+    """row_shift, its plain version and ``F.grid_sample`` (the library call
+    for the same bilinear shift) at the row_shift study's two shapes and
+    inputs, each by ``device_ms``; grid_sample's largest difference from
+    the kernel.  Not counted: the study's launches are read before."""
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.ops.cuda import shift_rows, shift_rows_reference
+    from dsnt_pose2d_tpu_torch.tools import bench_row_shift
+
+    out_by_case = {}
+    for r, length, out, stride in bench_row_shift.CASES:
+        rows, starts, fracs = bench_row_shift.case_inputs(r, length, out, stride, dev)
+        img, grid = row_shift_library(rows, starts, fracs, out, stride)
+        fns = {"ms": lambda: shift_rows(rows, starts, fracs, out, stride=stride),
+               "plain_ms": lambda: shift_rows_reference(rows, starts, fracs, out,
+                                                        stride=stride),
+               "library_ms": lambda: F.grid_sample(
+                   img, grid, mode="bilinear", padding_mode="zeros",
+                   align_corners=True)}
+        rec = {k: timing.device_ms(f)[0] for k, f in fns.items()}
+        ref = fns["library_ms"]()[:, :, 0, :].permute(0, 2, 1).reshape(r, out)
+        rec["library_max_abs_diff"] = (fns["ms"]() - ref).abs().max().item()
+        assert rec["library_max_abs_diff"] < 1e-2, rec
+        out_by_case[f"({r},{length})->{out}"] = rec
+    return out_by_case
+
+
 def phase_studies(dev, card, conv_out):
     """The five studies of ``dsnt_pose2d_tpu_torch/tools/`` in one short
     window each: ``bench_conv_core`` (its cases are processes of their own)
@@ -3857,6 +3933,7 @@ def phase_studies(dev, card, conv_out):
     walls["streaming"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    shift_vs = row_shift_at_study_shapes(dev)
     with tempfile.TemporaryDirectory(prefix="dsnt_closure_") as tmp:
         report = os.path.join(tmp, "closure.json")
         with contextlib.redirect_stdout(sys.stderr):
@@ -3895,6 +3972,7 @@ def phase_studies(dev, card, conv_out):
     for k in ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift", "calib_copy"):
         assert launches.get(k, 0) > 0, launches
     emit("studies", card=card, wall_s=time.perf_counter() - t_phase, walls_s=walls,
+         row_shift_vs_plain_and_grid_sample=shift_vs,
          beside="bench_conv_core's processes ran beside the tools phase's "
                 "heads grid: their times are checks, not measurements",
          row_shift=[{k: r[k] for k in ("rows", "l", "out", "speedup",

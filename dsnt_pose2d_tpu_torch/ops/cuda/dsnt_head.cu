@@ -31,35 +31,41 @@
 // TB/s, a kernel stays under its byte bound only below ~40 instructions an
 // element; a full-precision expf or logf is ~10-20 of them.
 //
-// The forward (redesigned for Hopper; see dsnt_head_fwd_kernel): one
-// 256-thread block per row with the row in registers (16 values a thread
-// for 64x64, four float4 loads issued together), a compile-time layout for
-// the 64x64 map, one expf an element for the softmax, a separable Gaussian
+// The forward (redesigned for Hopper; see dsnt_head_fwd_kernel): the row
+// in registers, one expf an element for the softmax, a separable Gaussian
 // (W + H expf a row), logs of z and of the Gaussian taken from the logits
-// (JS and KL one logf an element), and two barriers (one for none/var).
+// (JS and KL one logf an element), and two row combines (one for none/var).
 // The TPU kernels padded rows to 128 lanes with -1e30 logits and 1e4 grid
 // coordinates; here loops are bounded by H*W, so any map size up to kMaxHw
 // works.
 //
 // The backward (redesigned for Hopper on the forward's pieces; see
-// bwd_row_map64): the same row in registers for the 64x64 map, the same
-// barrier 1 (softmax and the Gaussian's sums, or var's moments), u held in
-// the logits' registers with at most one logf an element (none where the
-// Gaussian has underflowed), one more barrier for <z, u>, and dh written as
-// four float4 a thread: 1 KB of dynamic shared memory a block (the
-// Gaussian's factors and their logs) and no integer division.  The bytes
-// it must move are the forward's twice (dh is written).
+// bwd_row_regs): the same row in registers, the same combine 1 (softmax and
+// the Gaussian's sums, or var's moments), u held in the logits' registers
+// with at most one logf an element (none where the Gaussian has
+// underflowed), one more combine for <z, u>, and dh written once,
+// coalesced: dynamic shared memory for the Gaussian's factors and their
+// logs only, and no integer division an element.  The bytes it must move
+// are the forward's twice (dh is written).
 //
-// Which layout takes which map:
-//   forward   Map64 for 64x64 rows at a 16-byte aligned base; AnyMap (the
-//             row in registers, 64 values a thread) for every other map;
-//   backward  Map64 for 64x64 rows whose raw and dh both start 16-byte
-//             aligned; StagedRow (the row in 2 * H * W floats of shared
-//             memory, read in three passes) for every other map, since a
-//             row-in-registers AnyMap backward would hold the logits, the
-//             exponentials and u for 64 values a thread.
+// Which layout takes which map (the same for both kernels; see the layout
+// structs below):
+//   Map64      64x64 rows at a 16-byte aligned base (the backward: raw and
+//              dh both aligned): 256 threads a row, 16 values a thread as
+//              four float4;
+//   WarpRow    rows of at most 256 values (7x7 to 16x16): one warp a row,
+//              up to 8 values a lane, four rows a block; warp shuffles only,
+//              no barrier;
+//   Slots<4>   257 to 1,024 values (28x28, 32x32): 256 threads a row, 4
+//              values a thread;
+//   Slots<16>  1,025 to 4,096 values (56x56, a 64x64 row off the 16-byte
+//              grid): 256 threads a row, 16 values a thread;
+//   AnyMap (forward) and StagedRow (backward) for rows of 4,097 to kMaxHw
+//              values, which no configuration of the repo runs: AnyMap holds
+//              64 values a thread, StagedRow the row in 2 * H * W floats of
+//              shared memory, read in three passes.
 //
-// Block sums use warp shuffles and a fixed order, so results are
+// Block and warp sums use shuffles and a fixed order, so results are
 // deterministic run to run.
 
 #include <cuda_runtime.h>
@@ -168,23 +174,100 @@ __device__ __forceinline__ void grid_xy(int i, int h, int w, float* gx,
 // The forward.  Its helpers take the row layout as a template parameter, so
 // that a backward can be built on the same layouts.
 //
-// Where a thread's values sit in its row:
-//   Map64     the flagship's 64x64 map: 16 values a thread as 4 float4; float4
-//             number t + 256 k holds x = 4 (t % 16) + q, q = 0..3, of map row
-//             y = t / 16 + 16 k.  w and h are compile-time constants, so the
-//             grid coordinates come from the thread index by shifts.
-//   AnyMap    any map of up to kMaxHw values, 64 a thread: value k of thread
-//             t is element t + 256 k (coalesced scalar loads), its (x, y)
-//             from a division.  Not on the main path; it spills registers.
+// Where a thread's values sit in its row (kRowThreads threads hold a row,
+// kRows rows a block, kVals value slots a thread):
+//   Map64      the flagship's 64x64 map: 16 values a thread as 4 float4;
+//              float4 number t + 256 k holds x = 4 (t % 16) + q, q = 0..3, of
+//              map row y = t / 16 + 16 k.  w and h are compile-time constants,
+//              so the grid coordinates come from the thread index by shifts.
+//   Slots<S>   up to 256 S values, S a thread: value k of thread t is element
+//              t + 256 k (coalesced scalar loads and stores); its (x, y) steps
+//              on from value k - 1's (Walk), and its grid coordinates come
+//              from the row's table of W + H of them in shared memory (built
+//              once a row, one barrier): no division an element.
+//   WarpRow    up to 256 values, one warp a row and four rows a block (a call
+//              of 512 rows spreads as 128 blocks over the 132 SMs): value k
+//              of lane l is element l + 32 k, stepped as in Slots.  Its sums
+//              are warp shuffles, and each warp keeps its own share of the
+//              Gaussian's factors in shared memory.
+//   AnyMap     any map of up to kMaxHw values, 64 a thread, as in Slots but
+//              with (x, y) from a division.  It spills registers; only rows
+//              of more than 4,096 values take it.
 struct Map64 {
   static constexpr int kVals = 16;
   static constexpr bool kFixed = true;
+  static constexpr bool kStep = false;
+  static constexpr int kRowThreads = kThreads;
+  static constexpr int kRows = 1;
+};
+
+template <int S>
+struct Slots {
+  static constexpr int kVals = S;
+  static constexpr bool kFixed = false;
+  static constexpr bool kStep = true;
+  static constexpr int kRowThreads = kThreads;
+  static constexpr int kRows = 1;
+};
+
+struct WarpRow {
+  static constexpr int kVals = 8;
+  static constexpr bool kFixed = false;
+  static constexpr bool kStep = true;
+  static constexpr int kRowThreads = 32;
+  static constexpr int kRows = 4;
 };
 
 struct AnyMap {
   static constexpr int kVals = kMaxHw / kThreads;
   static constexpr bool kFixed = false;
+  static constexpr bool kStep = false;
+  static constexpr int kRowThreads = kThreads;
+  static constexpr int kRows = 1;
 };
+
+// The most values a row of layout L can hold.
+template <class L>
+constexpr int row_capacity() {
+  return L::kRowThreads * L::kVals;
+}
+
+// This thread's index among its row's threads, and its row.
+template <class L>
+__device__ __forceinline__ int row_thread() {
+  if constexpr (L::kRows == 1) {
+    return threadIdx.x;
+  } else {
+    return threadIdx.x & 31;
+  }
+}
+
+template <class L>
+__device__ __forceinline__ size_t row_index() {
+  if constexpr (L::kRows == 1) {
+    return blockIdx.x;
+  } else {
+    return static_cast<size_t>(blockIdx.x) * L::kRows + (threadIdx.x >> 5);
+  }
+}
+
+// Dynamic shared memory a row, in floats: the grid coordinates' table
+// (stepped layouts: X[w], then Y[h]), then the Gaussian's factors and their
+// logs (js/kl/mse: gx[w], log gx[w], gy[h], log gy[h]).
+template <int REG, class L>
+__host__ __device__ constexpr int row_smem_floats(int h, int w) {
+  return (L::kStep ? w + h : 0) + (uses_gauss<REG>() ? 2 * (w + h) : 0);
+}
+
+// This row's share of the dynamic shared memory (row_smem_floats).
+template <int REG, class L>
+__device__ __forceinline__ float* row_smem(float* smem, int h, int w) {
+  if constexpr (L::kRows == 1) {
+    return smem;
+  } else {
+    return smem + (threadIdx.x >> 5) * row_smem_floats<REG, L>(h, w);
+  }
+}
 
 // Keeps -d^2/2 finite for a target at any distance: 0 * (-inf) would be NaN.
 constexpr float kLogFloor = -1e30f;
@@ -195,10 +278,11 @@ __device__ __forceinline__ bool value_in_row(int k, int hw) {
   if constexpr (L::kFixed) {
     return true;
   } else {
-    return static_cast<int>(threadIdx.x) + kThreads * k < hw;
+    return row_thread<L>() + L::kRowThreads * k < hw;
   }
 }
 
+// (x, y) of value k of this thread, for Map64 and AnyMap.
 template <class L>
 __device__ __forceinline__ void value_xy(int k, int w, int* x, int* y) {
   const int t = threadIdx.x;
@@ -212,6 +296,45 @@ __device__ __forceinline__ void value_xy(int k, int w, int* x, int* y) {
   }
 }
 
+// Walks this thread's values in order, k = 0, 1, 2, ... (next() between
+// them), giving each one's (x, y).  In a stepped layout value k + 1 lies
+// kRowThreads = dy w + dx elements after value k: x += dx, y += dy, with
+// at most one carry, so the two divisions are taken once a thread.
+template <class L>
+struct Walk {
+  int x = 0, y = 0, dx = 0, dy = 0;
+
+  __device__ __forceinline__ explicit Walk(int w) {
+    if constexpr (L::kStep) {
+      const int t = row_thread<L>();
+      y = t / w;
+      x = t - y * w;
+      dy = L::kRowThreads / w;
+      dx = L::kRowThreads - dy * w;
+    }
+  }
+
+  __device__ __forceinline__ void at(int k, int w, int* px, int* py) const {
+    if constexpr (L::kStep) {
+      *px = x;
+      *py = y;
+    } else {
+      value_xy<L>(k, w, px, py);
+    }
+  }
+
+  __device__ __forceinline__ void next(int w) {
+    if constexpr (L::kStep) {
+      x += dx;
+      y += dy;
+      if (x >= w) {
+        x -= w;
+        ++y;
+      }
+    }
+  }
+};
+
 // log z taken from the logit v, as (v - m) - log S.  Every use multiplies
 // it by z, so a z of 0 takes 0: a -inf logit would give 0 * (-inf) = NaN,
 // where the contract's log(z + eps) is finite.
@@ -222,6 +345,37 @@ __device__ __forceinline__ float log_z(float v, float m, float ls, float z) {
 // The pixel-center coordinate (2 i + 1) / n - 1 of normalized_linspace.
 __device__ __forceinline__ float grid_coord(int i, int n) {
   return (2.f * i + 1.f) / n - 1.f;
+}
+
+// A stepped layout's table of the row's grid coordinates, X[w] then Y[h]
+// (the values grid_coord gives), published to the row's threads: one
+// barrier, a __syncwarp in WarpRow.  Other layouts need none.
+template <class L>
+__device__ __forceinline__ void coord_table(float* ctab, int h, int w) {
+  if constexpr (L::kStep) {
+    for (int c = row_thread<L>(); c < w + h; c += L::kRowThreads) {
+      ctab[c] = c < w ? grid_coord(c, w) : grid_coord(c - w, h);
+    }
+    if constexpr (L::kRows == 1) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+  }
+}
+
+// The grid coordinates (X, Y) at (x, y): from the table in a stepped
+// layout, from grid_coord otherwise (by shifts for Map64's constant w, h).
+template <class L>
+__device__ __forceinline__ void grid_at(const float* ctab, int x, int y,
+                                        int h, int w, float* gx, float* gy) {
+  if constexpr (L::kStep) {
+    *gx = ctab[x];
+    *gy = ctab[w + y];
+  } else {
+    *gx = grid_coord(x, w);
+    *gy = grid_coord(y, h);
+  }
 }
 
 template <class L>
@@ -242,8 +396,9 @@ __device__ __forceinline__ void load_row(const float* __restrict__ x, int hw,
   } else {
 #pragma unroll
     for (int k = 0; k < L::kVals; ++k) {
-      v[k] = value_in_row<L>(k, hw) ? __ldg(x + threadIdx.x + kThreads * k)
-                                    : 0.f;
+      v[k] = value_in_row<L>(k, hw)
+                 ? __ldg(x + row_thread<L>() + L::kRowThreads * k)
+                 : 0.f;
     }
   }
 }
@@ -271,11 +426,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 // in *own, its own warp's factor exp(m_w - M).  Lanes l and l + 8k each take
 // warp l % 8's partial and reduce over xor 1, 2, 4: every lane sums in the
 // same order up to commutation, so all threads get bitwise the same totals.
-template <int NS, int NR>
+// In WarpRow the warp is the row: its sums are the totals, M = m_w, and a
+// __syncwarp takes the barrier's place (it publishes the lanes' shares of
+// the Gaussian's factors to the warp).
+template <class L, int NS, int NR>
 __device__ __forceinline__ float combine_warps(float (*part)[NS + 1],
                                                const float (&acc)[NS],
                                                float mw, float (&tot)[NS],
                                                float* own) {
+  if constexpr (L::kRowThreads == 32) {
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < NS; ++k) tot[k] = warp_sum(acc[k]);
+    *own = (mw == -INFINITY) ? 0.f : 1.f;
+    return mw;
+  }
   const int lane = threadIdx.x & 31;
   float s[NS];
 #pragma unroll
@@ -308,8 +473,11 @@ __device__ __forceinline__ float combine_warps(float (*part)[NS + 1],
   return mm;
 }
 
-// One barrier: the sum of v over the block, the same in every thread.
+// One barrier: the sum of v over the row, the same in every thread (in
+// WarpRow the warp's sum, no barrier).
+template <class L>
 __device__ __forceinline__ float combine_sum(float v, float* red) {
+  if constexpr (L::kRowThreads == 32) return warp_sum(v);
   const int lane = threadIdx.x & 31;
   v = warp_sum(v);
   if (lane == 0) red[threadIdx.x >> 5] = v;
@@ -325,13 +493,16 @@ __device__ __forceinline__ float combine_sum(float v, float* red) {
 // exp(v - m_w) of the kept values (v >= threshold under `filter`; 0 for the
 // others), m_w the warp's max over them (-inf if the warp keeps none), and
 // their sums: [0] sum e, [1] sum e X, [2] sum e Y, and for var [3] sum e X^2,
-// [4] sum e Y^2.  Returns m_w.
-template <class L, bool VAR, int NS>
+// [4] sum e Y^2.  Without XY (a backward that needs no moments) only sum e.
+// Returns m_w.
+template <class L, bool VAR, bool XY, int NS>
 __device__ __forceinline__ float softmax_partials(const float (&v)[L::kVals],
                                                   float (&e)[L::kVals],
-                                                  float (&acc)[NS], int h,
+                                                  float (&acc)[NS],
+                                                  const float* ctab, int h,
                                                   int w, bool filter,
                                                   float threshold) {
+  static_assert(XY || !VAR, "var needs the moments");
   float mt = -INFINITY;
 #pragma unroll
   for (int k = 0; k < L::kVals; ++k) {
@@ -340,21 +511,32 @@ __device__ __forceinline__ float softmax_partials(const float (&v)[L::kVals],
     }
   }
   const float mw = warp_max(mt);
+  Walk<L> pos(w);
 #pragma unroll
-  for (int k = 0; k < L::kVals; ++k) {
+  for (int k = 0; k < L::kVals; ++k, pos.next(w)) {
+    if constexpr (L::kStep) {
+      if (!value_in_row<L>(k, h * w)) {
+        e[k] = 0.f;
+        continue;
+      }
+    }
     const bool kept = value_in_row<L>(k, h * w) &&
                       !(filter && !(v[k] >= threshold));
     e[k] = kept ? expf(v[k] - mw) : 0.f;
-    int x, y;
-    value_xy<L>(k, w, &x, &y);
-    const float gx = grid_coord(x, w);
-    const float gy = grid_coord(y, h);
-    acc[0] += e[k];
-    acc[1] += e[k] * gx;
-    acc[2] += e[k] * gy;
-    if constexpr (VAR) {
-      acc[3] += e[k] * gx * gx;
-      acc[4] += e[k] * gy * gy;
+    if constexpr (XY) {
+      int x, y;
+      pos.at(k, w, &x, &y);
+      float gx, gy;
+      grid_at<L>(ctab, x, y, h, w, &gx, &gy);
+      acc[0] += e[k];
+      acc[1] += e[k] * gx;
+      acc[2] += e[k] * gy;
+      if constexpr (VAR) {
+        acc[3] += e[k] * gx * gx;
+        acc[4] += e[k] * gy * gy;
+      }
+    } else {
+      acc[0] += e[k];
     }
   }
   return mw;
@@ -364,7 +546,7 @@ __device__ __forceinline__ float softmax_partials(const float (&v)[L::kVals],
 // f: gx[w], log gx[w], gy[h], log gy[h] (the logs -d^2/2, floored at
 // kLogFloor).  acc[3] and acc[4] gain this thread's share of sum gx and
 // sum gy; t is the row's target (x, y).
-template <int NS>
+template <class L, int NS>
 __device__ __forceinline__ void gauss_factors(float* f,
                                               const float* __restrict__ t,
                                               int h, int w, float inv_sx,
@@ -372,7 +554,7 @@ __device__ __forceinline__ void gauss_factors(float* f,
   static_assert(NS == 5, "acc[3] and acc[4] hold the Gaussian's sums");
   const float tx = t[0];
   const float ty = t[1];
-  for (int c = threadIdx.x; c < w + h; c += kThreads) {
+  for (int c = row_thread<L>(); c < w + h; c += L::kRowThreads) {
     const bool is_x = c < w;
     const float d = is_x ? (grid_coord(c, w) - tx) * inv_sx
                          : (grid_coord(c - w, h) - ty) * inv_sy;
@@ -389,38 +571,43 @@ __device__ __forceinline__ void gauss_factors(float* f,
   }
 }
 
-// Barrier 1 of the row-in-registers kernels: e = exp(v - m_w) and the
+// Combine 1 of the row-in-registers kernels: e = exp(v - m_w) and the
 // row's max (returned) and sums, as combine_warps gives them (acc holds
 // this thread's Gaussian sums on entry, if any).  A thresholded row that
-// keeps no logit takes the plain softmax: one more barrier, on part[1].
-template <class L, bool THRESH, bool VAR, int NS>
+// keeps no logit takes the plain softmax: one more combine, on part[1].
+template <class L, bool THRESH, bool VAR, bool XY, int NS>
 __device__ __forceinline__ float softmax_row(const float (&v)[L::kVals],
                                              float (&e)[L::kVals],
                                              float (&acc)[NS],
                                              float (*part)[kWarps][NS + 1],
-                                             int h, int w, float threshold,
+                                             const float* ctab, int h, int w,
+                                             float threshold,
                                              float (&tot)[NS], float* own) {
   constexpr int kNr = (NS == 5 && !VAR) ? 3 : NS;  // sums relative to a max
-  float mw = softmax_partials<L, VAR>(v, e, acc, h, w, THRESH, threshold);
-  float m = combine_warps<NS, kNr>(part[0], acc, mw, tot, own);
+  float mw = softmax_partials<L, VAR, XY>(v, e, acc, ctab, h, w, THRESH,
+                                          threshold);
+  float m = combine_warps<L, NS, kNr>(part[0], acc, mw, tot, own);
   if (THRESH && m == -INFINITY) {
     // No logit reaches the threshold: the plain softmax (the Gaussian's
     // partial sums are kept).
 #pragma unroll
     for (int k = 0; k < kNr; ++k) acc[k] = 0.f;
-    mw = softmax_partials<L, VAR>(v, e, acc, h, w, false, threshold);
-    m = combine_warps<NS, kNr>(part[1], acc, mw, tot, own);
+    mw = softmax_partials<L, VAR, XY>(v, e, acc, ctab, h, w, false,
+                                      threshold);
+    m = combine_warps<L, NS, kNr>(part[1], acc, mw, tot, own);
   }
   return m;
 }
 
-// Forward, one 256-thread block per row, the row held in registers.
-//   barrier 1: row max and the sums of e, e X, e Y (and e X^2, e Y^2 for
+// Forward, the row held in registers in layout L (a 256-thread block a row,
+// or a warp a row in WarpRow).
+//   combine 1: row max and the sums of e, e X, e Y (and e X^2, e Y^2 for
 //              var, or the Gaussian's two factor sums), merged across warps
 //              by rescaling each warp's partial with exp(m_w - M);
-//   barrier 2: js/kl/mse only, the regularizer's sum.
-// A thresholded row that keeps no logit takes one more barrier (the plain
-// softmax's partials again).
+//   combine 2: js/kl/mse only, the regularizer's sum.
+// Each combine is one barrier in a block row and warp shuffles alone in
+// WarpRow.  A thresholded row that keeps no logit takes one more combine
+// (the plain softmax's partials again).
 //
 // The target Gaussian is separable, exp(-(dx^2 + dy^2)/2) = gx(x) gy(y), so
 // a row costs W + H expf for it (into shared memory, with their logs -d^2/2)
@@ -439,23 +626,28 @@ __device__ __forceinline__ float softmax_row(const float (&v)[L::kVals],
 // 1 px), JS's term is z log 2 and KL's log(gn + eps) is log eps, so a warp
 // whose values all lie there takes no logf at all.
 template <int REG, bool THRESH, class L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(L::kRows * L::kRowThreads)
 dsnt_head_fwd_kernel(const float* __restrict__ raw,
                      const float* __restrict__ targets,
                      float* __restrict__ coords, float* __restrict__ reg_out,
                      int h_arg, int w_arg, float threshold, float inv_sx,
-                     float inv_sy, float tvx, float tvy) {
+                     float inv_sy, float tvx, float tvy, int n) {
   constexpr bool kGauss = uses_gauss<REG>();
   constexpr bool kIsVar = REG == kVar;
-  constexpr int kNs = (kGauss || kIsVar) ? 5 : 3;   // sums of barrier 1
+  constexpr int kNs = (kGauss || kIsVar) ? 5 : 3;   // sums of combine 1
   constexpr int kVals = L::kVals;
-  extern __shared__ float gfac[];  // kGauss: gx[w], log gx, gy[h], log gy
+  extern __shared__ float smem[];  // row_smem_floats a row
   __shared__ float part[2][kWarps][kNs + 1];
   __shared__ float red[kWarps];
   const int w = L::kFixed ? 64 : w_arg;
   const int h = L::kFixed ? 64 : h_arg;
   const int hw = h * w;
-  const size_t row = blockIdx.x;
+  const size_t row = row_index<L>();
+  if constexpr (L::kRows > 1) {
+    if (row >= static_cast<size_t>(n)) return;   // the whole warp: no barrier
+  }
+  float* ctab = row_smem<REG, L>(smem, h, w);
+  float* gfac = ctab + (L::kStep ? w + h : 0);
 
   float v[kVals], e[kVals];
   load_row<L>(raw + row * hw, hw, v);
@@ -464,13 +656,14 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
 #pragma unroll
   for (int k = 0; k < kNs; ++k) acc[k] = 0.f;
   if constexpr (kGauss) {
-    gauss_factors(gfac, targets + 2 * row, h, w, inv_sx, inv_sy, acc);
+    gauss_factors<L>(gfac, targets + 2 * row, h, w, inv_sx, inv_sy, acc);
   }
+  coord_table<L>(ctab, h, w);
 
-  // Barrier 1: the softmax's max and sums (and the Gaussian's sums).
+  // Combine 1: the softmax's max and sums (and the Gaussian's sums).
   float tot[kNs], own;
-  const float m = softmax_row<L, THRESH, kIsVar>(v, e, acc, part, h, w,
-                                                 threshold, tot, &own);
+  const float m = softmax_row<L, THRESH, kIsVar, true>(
+      v, e, acc, part, ctab, h, w, threshold, tot, &own);
   const float rs = 1.f / tot[0];
   const float cx = tot[1] * rs;
   const float cy = tot[2] * rs;
@@ -482,7 +675,7 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
     regv = (var_x - tvx) * (var_x - tvx) + (var_y - tvy) * (var_y - tvy);
   }
   if constexpr (kGauss) {
-    // Barrier 2: the regularizer against the normalized Gaussian.
+    // Combine 2: the regularizer against the normalized Gaussian.
     const float* gxs = gfac;
     const float* lgx = gfac + w;
     const float* gys = gfac + 2 * w;
@@ -494,11 +687,12 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
     const float zc = own * rs;            // z = e * exp(m_w - M) / S
     const float log_eps = logf(kEps);
     float acc2 = 0.f;
+    Walk<L> pos(w);
 #pragma unroll
-    for (int k = 0; k < kVals; ++k) {
+    for (int k = 0; k < kVals; ++k, pos.next(w)) {
       if (!value_in_row<L>(k, hw)) continue;
       int x, y;
-      value_xy<L>(k, w, &x, &y);
+      pos.at(k, w, &x, &y);
       const float z = e[k] * zc;
       const float gn = gxs[x] * rg * gys[y];
       if constexpr (REG == kJs) {
@@ -519,10 +713,10 @@ dsnt_head_fwd_kernel(const float* __restrict__ raw,
         acc2 += (z - gn) * (z - gn);
       }
     }
-    const float sum = combine_sum(acc2, red);
+    const float sum = combine_sum<L>(acc2, red);
     regv = (REG == kJs) ? 0.5f * sum : (REG == kMse) ? sum / hw : sum;
   }
-  if (threadIdx.x == 0) {
+  if (row_thread<L>() == 0) {
     coords[2 * row] = cx;
     coords[2 * row + 1] = cy;
     reg_out[row] = regv;
@@ -551,11 +745,12 @@ __device__ __forceinline__ float reg_grad(float z, float gn, float gx,
   return 0.f;
 }
 
-// The backward of a row staged in shared memory (StagedRow: any map of up
-// to kMaxHw values but an aligned 64x64 one): the row is read from device
-// memory once, coalesced, into shared memory (2 * H * W floats: z, then u),
-// and every later pass reads shared memory; grid coordinates come from the
-// index by a division; three block reductions (six barriers).
+// The backward of a row staged in shared memory (StagedRow: rows of 4,097
+// to kMaxHw values, which no configuration of the repo runs): the row is
+// read from device memory once, coalesced, into shared memory (2 * H * W
+// floats: z, then u), and every later pass reads shared memory; grid
+// coordinates come from the index by a division; three block reductions
+// (six barriers).
 template <int REG, bool THRESH>
 __device__ __forceinline__ void bwd_row_staged(
     const float* __restrict__ raw, const float* __restrict__ targets,
@@ -645,11 +840,12 @@ __device__ __forceinline__ void bwd_row_staged(
   }
 }
 
-// The backward of a 64x64 row in registers (Map64), rebuilt on the
-// forward's pieces: 16 logits a thread from four float4 loads issued
-// together, the softmax and the Gaussian's sums in barrier 1 (softmax_row;
-// var's moments there too), u in the registers that held the logits, <z, u>
-// in barrier 2 (combine_sum), and dh written as four float4 a thread.
+// The backward of a row in registers (Map64, Slots<S>, WarpRow), on the
+// forward's pieces: the logits loaded as the forward loads them (four float4
+// a thread in Map64), the softmax and the Gaussian's sums in combine 1
+// (softmax_row; var's moments there too), u in the registers that held the
+// logits, <z, u> in combine 2 (combine_sum), and dh written once, coalesced
+// (four float4 a thread in Map64, one float a value elsewhere).
 //
 // u takes the exact derivative of the eps-guarded forward where eps is
 // absorbed (z, m2 >~ 1.7e-17 in fp32: z + eps == z); below that, the term
@@ -670,26 +866,32 @@ __device__ __forceinline__ void bwd_row_staged(
 // target off the grid) scales by more than 1, and then lifts values that
 // the contract's exp underflows to 0 or to an imprecise denormal before the
 // normalization, and KL's log(gn + eps) sees the difference.  Such a row
-// (uniform over the block) takes the contract's form,
-// expf(log gx + log gy) / max(sum G, eps): one more expf an element.
-template <int REG, bool THRESH>
-__device__ __forceinline__ void bwd_row_map64(
+// (uniform over the row's threads) takes the contract's form,
+// expf(log gx + log gy) / max(sum G, eps): one more expf an element.  On a
+// small map a Gaussian is cut by the edge far more often, so more rows take
+// it there.
+template <int REG, bool THRESH, class L>
+__device__ __forceinline__ void bwd_row_regs(
     const float* __restrict__ raw, const float* __restrict__ targets,
     const float* __restrict__ g_coords, const float* __restrict__ g_reg,
-    float* __restrict__ dh, float threshold, float inv_sx, float inv_sy,
-    float tvx, float tvy) {
-  using L = Map64;
+    float* __restrict__ dh, int h_arg, int w_arg, float threshold,
+    float inv_sx, float inv_sy, float tvx, float tvy, int n) {
   constexpr bool kGauss = uses_gauss<REG>();
   constexpr bool kIsVar = REG == kVar;
-  constexpr int kNs = (kGauss || kIsVar) ? 5 : 3;   // sums of barrier 1
+  constexpr int kNs = (kGauss || kIsVar) ? 5 : 3;   // sums of combine 1
   constexpr int kVals = L::kVals;
-  constexpr int w = 64;
-  constexpr int h = 64;
-  constexpr int hw = h * w;
-  extern __shared__ float gfac[];  // kGauss: gx[w], log gx, gy[h], log gy
+  const int w = L::kFixed ? 64 : w_arg;
+  const int h = L::kFixed ? 64 : h_arg;
+  const int hw = h * w;
+  extern __shared__ float smem[];  // row_smem_floats a row
   __shared__ float part[2][kWarps][kNs + 1];
   __shared__ float red[kWarps];
-  const size_t row = blockIdx.x;
+  const size_t row = row_index<L>();
+  if constexpr (L::kRows > 1) {
+    if (row >= static_cast<size_t>(n)) return;   // the whole warp: no barrier
+  }
+  float* ctab = row_smem<REG, L>(smem, h, w);
+  float* gfac = ctab + (L::kStep ? w + h : 0);
 
   float v[kVals], e[kVals];
   load_row<L>(raw + row * hw, hw, v);
@@ -701,13 +903,15 @@ __device__ __forceinline__ void bwd_row_map64(
 #pragma unroll
   for (int k = 0; k < kNs; ++k) acc[k] = 0.f;
   if constexpr (kGauss) {
-    gauss_factors(gfac, targets + 2 * row, h, w, inv_sx, inv_sy, acc);
+    gauss_factors<L>(gfac, targets + 2 * row, h, w, inv_sx, inv_sy, acc);
   }
+  coord_table<L>(ctab, h, w);
 
-  // Barrier 1: the softmax's max and sums (and the Gaussian's sums).
+  // Combine 1: the softmax's max and sums (and the Gaussian's sums); the
+  // moments only where they are used (var), bar Map64's unchanged sums.
   float tot[kNs], own;
-  const float m = softmax_row<L, THRESH, kIsVar>(v, e, acc, part, h, w,
-                                                 threshold, tot, &own);
+  const float m = softmax_row<L, THRESH, kIsVar, L::kFixed || kIsVar>(
+      v, e, acc, part, ctab, h, w, threshold, tot, &own);
   const float rs = 1.f / tot[0];
   const float zc = own * rs;            // z = e * exp(m_w - M) / S
   float mu_x = 0.f, mu_y = 0.f, cvx = 0.f, cvy = 0.f;
@@ -728,14 +932,26 @@ __device__ __forceinline__ void bwd_row_map64(
                     : gfac[x] * rg * gfac[2 * w + y];
   };
 
+  // u from the grid coordinates and d = d(reg)/dz.  With no regularizer
+  // (d = 0) a stepped layout forms u again from the table for dh rather
+  // than hold it across combine 2 (16 registers fewer in Slots<16>).
+  auto u_at = [&](float gx, float gy, float d) {
+    return gcx * gx + gcy * gy + gr * d;
+  };
+  constexpr bool kHoldU = !(L::kStep && REG == kNone);
+
   // u (into v) and z (into e); this thread's share of <z, u>.
   float dot = 0.f;
+  Walk<L> pos(w);
 #pragma unroll
-  for (int k = 0; k < kVals; ++k) {
+  for (int k = 0; k < kVals; ++k, pos.next(w)) {
+    if constexpr (L::kStep) {
+      if (!value_in_row<L>(k, hw)) continue;
+    }
     int x, y;
-    value_xy<L>(k, w, &x, &y);
-    const float gx = grid_coord(x, w);
-    const float gy = grid_coord(y, h);
+    pos.at(k, w, &x, &y);
+    float gx, gy;
+    grid_at<L>(ctab, x, y, h, w, &gx, &gy);
     const float z = e[k] * zc;
     float d = 0.f;
     if constexpr (REG == kJs) {
@@ -755,48 +971,87 @@ __device__ __forceinline__ void bwd_row_map64(
     } else if constexpr (REG == kVar) {
       d = cvx * (gx * gx - 2.f * mu_x * gx) + cvy * (gy * gy - 2.f * mu_y * gy);
     }
-    const float u = gcx * gx + gcy * gy + gr * d;
+    const float u = u_at(gx, gy, d);
     e[k] = z;
-    v[k] = u;
+    if constexpr (kHoldU) v[k] = u;
     dot += z * u;
   }
 
-  // Barrier 2: <z, u>; then dh = z (u - <z, u>), four float4 a thread.
-  dot = combine_sum(dot, red);
-  float4* out = reinterpret_cast<float4*>(dh + row * hw);
+  // Combine 2: <z, u>; then dh = z (u - <z, u>).
+  dot = combine_sum<L>(dot, red);
+  if constexpr (L::kFixed) {
+    float4* out = reinterpret_cast<float4*>(dh + row * hw);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int i = 4 * k;
-    out[threadIdx.x + kThreads * k] =
-        make_float4(e[i] * (v[i] - dot), e[i + 1] * (v[i + 1] - dot),
-                    e[i + 2] * (v[i + 2] - dot), e[i + 3] * (v[i + 3] - dot));
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * k;
+      out[threadIdx.x + kThreads * k] =
+          make_float4(e[i] * (v[i] - dot), e[i + 1] * (v[i + 1] - dot),
+                      e[i + 2] * (v[i + 2] - dot), e[i + 3] * (v[i + 3] - dot));
+    }
+  } else {
+    float* out = dh + row * hw + row_thread<L>();
+    Walk<L> at(w);
+#pragma unroll
+    for (int k = 0; k < kVals; ++k, at.next(w)) {
+      if (!value_in_row<L>(k, hw)) continue;
+      float u = 0.f;
+      if constexpr (kHoldU) {
+        u = v[k];
+      } else {
+        int x, y;
+        at.at(k, w, &x, &y);
+        float gx, gy;
+        grid_at<L>(ctab, x, y, h, w, &gx, &gy);
+        u = u_at(gx, gy, 0.f);
+      }
+      out[L::kRowThreads * k] = e[k] * (u - dot);
+    }
   }
 }
 
-// The layout of the backward for every map but an aligned 64x64 one.
-struct StagedRow {};
+// The layout of the backward for rows of more than 4,096 values.
+struct StagedRow {
+  static constexpr bool kStep = false;
+  static constexpr int kRowThreads = kThreads;
+  static constexpr int kRows = 1;
+};
 
-// Backward, one 256-thread block per row, in layout L (Map64 or StagedRow).
-// REG is the regularizer whose derivative enters u (kNone when the caller
-// has no reg cotangent); g_reg is read only then.
+// The backward's blocks an SM that ptxas is held to (0: no bound, as for
+// every layout but Slots<16>).  Left to itself, ptxas
+// (nvcc 12.9) caps some Slots<16> instances at 64 registers and spills.
+// Held to three blocks an SM (80 registers) none spills; the main path's
+// instance (reg none, plain softmax) fits four (64 registers), so that 512
+// rows take one wave of the 132 SMs.
 template <int REG, bool THRESH, class L>
-__global__ void __launch_bounds__(kThreads)
+constexpr int bwd_min_blocks() {
+  if constexpr (!std::is_same_v<L, Slots<16>>) return 0;
+  return REG == kNone && !THRESH ? 4 : 3;
+}
+
+// Backward in layout L (Map64, Slots<S>, WarpRow or StagedRow).  REG is the
+// regularizer whose derivative enters u (kNone when the caller has no reg
+// cotangent); g_reg is read only then.
+template <int REG, bool THRESH, class L>
+__global__ void __launch_bounds__(L::kRows * L::kRowThreads,
+                                  bwd_min_blocks<REG, THRESH, L>())
 dsnt_head_bwd_kernel(const float* __restrict__ raw,
                      const float* __restrict__ targets,
                      const float* __restrict__ g_coords,
                      const float* __restrict__ g_reg, float* __restrict__ dh,
                      int h, int w, float threshold, float inv_sx,
-                     float inv_sy, float tvx, float tvy) {
-  if constexpr (std::is_same_v<L, Map64>) {
-    bwd_row_map64<REG, THRESH>(raw, targets, g_coords, g_reg, dh, threshold,
-                               inv_sx, inv_sy, tvx, tvy);
-  } else {
+                     float inv_sy, float tvx, float tvy, int n) {
+  if constexpr (std::is_same_v<L, StagedRow>) {
     bwd_row_staged<REG, THRESH>(raw, targets, g_coords, g_reg, dh, h, w,
                                 threshold, inv_sx, inv_sy, tvx, tvy);
+  } else {
+    bwd_row_regs<REG, THRESH, L>(raw, targets, g_coords, g_reg, dh, h, w,
+                                 threshold, inv_sx, inv_sy, tvx, tvy, n);
   }
 }
 
-template <typename Kernel, typename... Args>
+// Launches kernel over n rows in layout L, kRows rows a block; the kernel's
+// last argument is n.
+template <class L, typename Kernel, typename... Args>
 cudaError_t launch_rows(Kernel kernel, int n, size_t smem, cudaStream_t stream,
                         Args... args) {
   if (smem > 48 * 1024) {
@@ -805,7 +1060,8 @@ cudaError_t launch_rows(Kernel kernel, int n, size_t smem, cudaStream_t stream,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<n, kThreads, smem, stream>>>(args...);
+  const int blocks = n / L::kRows + (n % L::kRows != 0);
+  kernel<<<blocks, L::kRows * L::kRowThreads, smem, stream>>>(args..., n);
   return cudaGetLastError();
 }
 
@@ -826,30 +1082,34 @@ cudaError_t dispatch(int reg_kind, int thresholded, F f) {
   }
 }
 
-// Dynamic shared memory of the row-in-registers kernels: the Gaussian's
-// factors and their logs (js/kl/mse).
-template <int REG>
-size_t gauss_smem(int h, int w) {
-  return uses_gauss<REG>() ? 2 * static_cast<size_t>(h + w) * sizeof(float)
-                           : 0;
+// Calls f(L{}) for the layout of a row of h x w values: Map64 when map64
+// (a 64x64 row at the alignment the kernel needs), else the smallest of
+// WarpRow, Slots<4> and Slots<16> that holds the row, else Large.
+template <class Large, typename F>
+cudaError_t with_layout(int h, int w, bool map64, F f) {
+  const int hw = h * w;
+  if (map64) return f(Map64{});
+  if (hw <= row_capacity<WarpRow>()) return f(WarpRow{});
+  if (hw <= row_capacity<Slots<4>>()) return f(Slots<4>{});
+  if (hw <= row_capacity<Slots<16>>()) return f(Slots<16>{});
+  return f(Large{});
 }
 
-template <int REG, bool THRESH, class L>
-cudaError_t launch_fwd(const float* raw, const float* targets, float* coords,
-                       float* reg_out, int n, int h, int w, float threshold,
-                       float inv_sx, float inv_sy, float tvx, float tvy,
-                       cudaStream_t stream) {
-  return launch_rows(dsnt_head_fwd_kernel<REG, THRESH, L>, n,
-                     gauss_smem<REG>(h, w), stream, raw, targets, coords,
-                     reg_out, h, w, threshold, inv_sx, inv_sy, tvx, tvy);
+// Dynamic shared memory of the row-in-registers kernels, for each row of a
+// block: the grid coordinates' table (stepped layouts) and the Gaussian's
+// factors and their logs (js/kl/mse).
+template <int REG, class L>
+size_t row_smem_bytes(int h, int w) {
+  return L::kRows * static_cast<size_t>(row_smem_floats<REG, L>(h, w)) *
+         sizeof(float);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
-// 64x64 rows at a 16-byte aligned base take Map64, every other map (up to
-// kMaxHw values) the one generic layout.
+// 64x64 rows at a 16-byte aligned base take Map64; other rows of up to
+// 4,096 values WarpRow or Slots<S> (with_layout); larger rows AnyMap.
 cudaError_t fwd(const float* raw, const float* targets, float* coords,
                 float* reg_out, int n, int h, int w, int reg_kind,
                 int thresholded, float threshold, float inv_sx, float inv_sy,
@@ -858,20 +1118,19 @@ cudaError_t fwd(const float* raw, const float* targets, float* coords,
   return dispatch(reg_kind, thresholded, [&](auto reg, auto thresh) {
     constexpr int REG = decltype(reg)::value;
     constexpr bool TH = decltype(thresh)::value;
-    if (map64) {
-      return launch_fwd<REG, TH, Map64>(raw, targets, coords, reg_out, n, h,
-                                         w, threshold, inv_sx, inv_sy, tvx,
-                                         tvy, stream);
-    }
-    return launch_fwd<REG, TH, AnyMap>(
-        raw, targets, coords, reg_out, n, h, w, threshold, inv_sx, inv_sy, tvx,
-        tvy, stream);
+    return with_layout<AnyMap>(h, w, map64, [&](auto layout) {
+      using L = decltype(layout);
+      return launch_rows<L>(dsnt_head_fwd_kernel<REG, TH, L>, n,
+                            row_smem_bytes<REG, L>(h, w), stream, raw, targets,
+                            coords, reg_out, h, w, threshold, inv_sx, inv_sy,
+                            tvx, tvy);
+    });
   });
 }
 
-// 64x64 rows whose raw and dh both start 16-byte aligned take Map64 (the
-// row in registers), every other map StagedRow (the row in 2 * H * W floats
-// of shared memory).
+// 64x64 rows whose raw and dh both start 16-byte aligned take Map64; other
+// rows of up to 4,096 values WarpRow or Slots<S>; larger rows StagedRow
+// (the row in 2 * H * W floats of shared memory).
 cudaError_t bwd(const float* raw, const float* targets, const float* g_coords,
                 const float* g_reg, float* dh, int n, int h, int w,
                 int reg_kind, int thresholded, float threshold, float inv_sx,
@@ -880,16 +1139,16 @@ cudaError_t bwd(const float* raw, const float* targets, const float* g_coords,
   return dispatch(reg_kind, thresholded, [&](auto reg, auto thresh) {
     constexpr int REG = decltype(reg)::value;
     constexpr bool TH = decltype(thresh)::value;
-    if (map64) {
-      return launch_rows(dsnt_head_bwd_kernel<REG, TH, Map64>, n,
-                         gauss_smem<REG>(h, w), stream, raw, targets,
-                         g_coords, g_reg, dh, h, w, threshold, inv_sx, inv_sy,
-                         tvx, tvy);
-    }
-    return launch_rows(dsnt_head_bwd_kernel<REG, TH, StagedRow>, n,
-                       static_cast<size_t>(h) * w * sizeof(float) * 2, stream,
-                       raw, targets, g_coords, g_reg, dh, h, w, threshold,
-                       inv_sx, inv_sy, tvx, tvy);
+    return with_layout<StagedRow>(h, w, map64, [&](auto layout) {
+      using L = decltype(layout);
+      const size_t smem =
+          std::is_same_v<L, StagedRow>
+              ? static_cast<size_t>(h) * w * sizeof(float) * 2
+              : row_smem_bytes<REG, L>(h, w);
+      return launch_rows<L>(dsnt_head_bwd_kernel<REG, TH, L>, n, smem, stream,
+                            raw, targets, g_coords, g_reg, dh, h, w,
+                            threshold, inv_sx, inv_sy, tvx, tvy);
+    });
   });
 }
 

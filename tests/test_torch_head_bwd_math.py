@@ -1,8 +1,10 @@
 """The DSNT-head backward kernel's rewritten arithmetic, mirrored in torch on the CPU.
 
-For 64x64 rows (the ``Map64`` layout), ``ops/cuda/dsnt_head.cu``'s backward
-does not compute dh the way the plain version does: each warp exponentiates
-against its own max and the warps' sums are rescaled to the row's; the
+For every row of up to 4,096 values (the ``Map64``, ``WarpRow`` and
+``Slots`` layouts), ``ops/cuda/dsnt_head.cu``'s backward does not compute dh
+the way the plain version does: each warp exponentiates against its own max
+and the warps' sums are rescaled to the row's (a row of at most 256 values
+is one warp); the
 target Gaussian is separable (``sum G = sum gx * sum gy``) and normalized by
 ``max(sum G, eps)``; ``log(z + eps)`` is taken from the logit as
 ``(v - M) - log S``; ``z / (z + eps)`` and ``m2 / (m2 + eps)`` are taken as
@@ -24,25 +26,25 @@ import torch
 from dsnt_pose2d_tpu_torch.ops.coords import normalized_linspace
 from dsnt_pose2d_tpu_torch.ops.cuda import (PREACT_KINDS, REG_KINDS,
                                             fused_dsnt_head_bwd_reference)
-from test_torch_head_fwd_math import THREADS, WARPS, adversarial_rows, log_z
+from test_torch_head_fwd_math import WARPS, adversarial_rows, layout_warps, log_z
 
 EPS = 1e-24
 
 
 def kernel_backward(raw, t, gc, gr, sigma_px, reg, preact, threshold,
                     guard=True, separable_off_grid=False, log_z_guard=True):
-    """dh as the backward kernel computes it for ``(n, 64, 64)`` fp32
-    heatmaps (``gr`` None for reg none); ``guard=False`` normalizes the
+    """dh as the backward kernel computes it for ``(n, h, w)`` fp32 heatmaps
+    of up to 4,096 values (``gr`` None for reg none); ``guard=False``
+    normalizes the
     Gaussian by ``1 / sum G`` unguarded, ``separable_off_grid=True``
     keeps the separable product on rows whose ``sum G`` is below 1, and
     ``log_z_guard=False`` takes ``log z`` from the logit where z is 0 too."""
     n, h, w = raw.shape
-    assert (h, w) == (64, 64)
     hw = h * w
+    assert hw <= 4096
     v = raw.reshape(n, hw)
     i = torch.arange(hw)
-    # Map64: float4 number t + 256 k of the row is thread t's k-th.
-    warp = (i // 4 % THREADS // 32).expand(n, hw)
+    warp = layout_warps(h, w).expand(n, hw)
     keep = torch.ones_like(v, dtype=torch.bool)
     if preact == "thresholded_softmax":
         keep = v >= threshold
@@ -107,10 +109,18 @@ def cotangents(n, seed):
     return torch.randn((n, 2), generator=g), torch.randn((n,), generator=g)
 
 
+# 64x64 (Map64), the resolution grid's 7x7 and 14x14 (WarpRow), 28x28
+# (Slots<4>) and config #5's 56x56 (Slots<16>).
+MAPS = [(64, 64), (7, 7), (14, 14), (28, 28), (56, 56)]
+
+
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
-def test_bwd_arithmetic_matches_plain(reg, preact):
-    raw, t = adversarial_rows(12, 64, 64, seed=11)
+@pytest.mark.parametrize("hw", MAPS)
+def test_bwd_arithmetic_matches_plain(hw, reg, preact):
+    # The adversarial rows: one-hot, underflowing and all-below-threshold
+    # rows, -inf logits, and targets whose sum G underflows or is below 1.
+    raw, t = adversarial_rows(12, *hw, seed=11)
     gc, gr = cotangents(12, 3)
     gr = None if reg == "none" else gr
     got = kernel_backward(raw, t, gc, gr, 1.0, reg, preact, 0.5)
@@ -120,9 +130,10 @@ def test_bwd_arithmetic_matches_plain(reg, preact):
 
 
 @pytest.mark.parametrize("sigma", [0.7, 1.0, 2.5])
-def test_bwd_arithmetic_matches_plain_on_random_rows(sigma):
+@pytest.mark.parametrize("hw", MAPS)
+def test_bwd_arithmetic_matches_plain_on_random_rows(hw, sigma):
     g = torch.Generator().manual_seed(5)
-    raw = torch.randn((48, 64, 64), generator=g) * 3.0
+    raw = torch.randn((48, *hw), generator=g) * 3.0
     raw[0::7] *= 40.0          # peaked rows: probabilities underflow to 0
     t = torch.rand((48, 2), generator=g) * 2.4 - 1.2
     gc, gr = cotangents(48, 7)

@@ -2,7 +2,8 @@
 
 ``ops/cuda/dsnt_head.cu::dsnt_head_fwd_kernel`` does not compute the head the
 way the plain version does: each warp exponentiates against its own max and
-the warps' sums are rescaled to the row's; the target Gaussian is separable
+the warps' sums are rescaled to the row's (a row of at most 256 values is
+one warp, ``WarpRow``); the target Gaussian is separable
 (``exp(-(dx^2 + dy^2)/2) = gx(x) gy(y)``, ``sum G = sum gx * sum gy``); the
 logs of z and of the normalized Gaussian are taken from the logits, with
 ``log max(sum G, eps)``; and where the Gaussian has underflowed to 0, JS's
@@ -25,6 +26,20 @@ from dsnt_pose2d_tpu_torch.ops.cuda import (MAX_HW, PREACT_KINDS, REG_KINDS,
 
 EPS = 1e-24
 WARPS, THREADS = 8, 256
+WARP_ROW_MAX_HW = 256     # rows up to this size are one warp (WarpRow)
+
+
+def layout_warps(h, w):
+    """The warp of the row's threads that holds each element, in the layout
+    the kernels give an ``h`` x ``w`` row: Map64's float4 number t + 256 k
+    (thread t) for 64x64, one warp for rows of up to 256 values (WarpRow),
+    element t + 256 k in thread t otherwise (Slots, AnyMap)."""
+    i = torch.arange(h * w)
+    if (h, w) == (64, 64):
+        return i // 4 % THREADS // 32
+    if h * w <= WARP_ROW_MAX_HW:
+        return torch.zeros_like(i)
+    return i % THREADS // 32
 
 
 def kernel_forward(raw, t, sigma_px, reg, preact, threshold, guard=True,
@@ -36,8 +51,7 @@ def kernel_forward(raw, t, sigma_px, reg, preact, threshold, guard=True,
     hw = h * w
     v = raw.reshape(n, hw)
     i = torch.arange(hw)
-    thread = i // 4 % THREADS if (h, w) == (64, 64) else i % THREADS
-    warp = (thread // 32).expand(n, hw)
+    warp = layout_warps(h, w).expand(n, hw)
     keep = torch.ones_like(v, dtype=torch.bool)
     if preact == "thresholded_softmax":
         keep = v >= threshold
@@ -110,7 +124,8 @@ def adversarial_rows(n, h, w, seed):
 
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
-@pytest.mark.parametrize("hw", [(64, 64), (7, 9), (128, MAX_HW // 128)])
+@pytest.mark.parametrize("hw", [(64, 64), (7, 9), (128, MAX_HW // 128), (7, 7),
+                                (14, 14), (16, 16), (28, 28), (56, 56)])
 def test_kernel_arithmetic_matches_plain(hw, reg, preact):
     raw, t = adversarial_rows(12, *hw, seed=11)
     got_c, got_r = kernel_forward(raw, t, 1.0, reg, preact, 0.5)

@@ -51,11 +51,17 @@ def _heads(shape, seed, device):
     return torch.from_numpy(raw).to(device), torch.from_numpy(t).to(device)
 
 
-# 64x64 (hourglass at 256 px), 56x56 (ResNet-50 dilate 2 at 448 px: the
-# forward's AnyMap, the backward's StagedRow), and 8x8 to 32x32 (the
-# resolution ablation's ResNet maps at 256 px).
+# 64x64 (hourglass at 256 px: Map64), 56x56 (ResNet-50 and ViT-S/16 2x at
+# 448 px: Slots<16>), 7x7, 14x14 and 28x28 (the resolution grid's maps:
+# WarpRow, WarpRow, Slots<4>), 8x8 to 32x32 (the same ResNets at 256 px),
+# and each layout's edges: 16x16 = 256 and 1x257 (WarpRow | Slots<4>),
+# 32x32 = 1,024 and 5x205 = 1,025 (Slots<4> | Slots<16>), 32x128 = 4,096
+# and 17x241 = 4,097 (Slots<16> | AnyMap, StagedRow).  Row counts that are
+# no multiple of WarpRow's four rows a block leave its last block part full.
 HEAD_SHAPES = [(2, 3, 64, 64), (5, 7, 9), (2, 3, 56, 56), (4, 8, 8),
-               (4, 16, 16), (4, 32, 32)]
+               (4, 16, 16), (4, 32, 32), (3, 5, 7, 7), (3, 14, 14),
+               (2, 5, 28, 28), (3, 1, 257), (3, 5, 205), (2, 32, 128),
+               (3, 17, 241)]
 
 
 @pytest.mark.cuda
@@ -271,13 +277,15 @@ def _adversarial_heads(n, h, w, seed, device):
             torch.from_numpy(t).to(device))
 
 
-ADVERSARIAL_CASES = ["64x64", "64x64_unaligned", "7x9", "max_hw"]
+ADVERSARIAL_CASES = ["64x64", "64x64_unaligned", "7x9", "max_hw", "7x7",
+                     "14x14", "16x16", "1x257", "28x28", "32x32", "5x205",
+                     "56x56", "32x128", "17x241"]
 
 
 def _adversarial_case(case, device):
     """The adversarial rows in the map and alignment of ``case``."""
-    h, w = {"64x64": (64, 64), "64x64_unaligned": (64, 64), "7x9": (7, 9),
-            "max_hw": (128, MAX_HW // 128)}[case]
+    h, w = ((128, MAX_HW // 128) if case == "max_hw"
+            else tuple(map(int, case.removesuffix("_unaligned").split("x"))))
     raw, t = _adversarial_heads(21, h, w, 11, device)
     if case == "64x64_unaligned":
         flat = torch.empty(raw.numel() + 1, device=device)
@@ -292,8 +300,9 @@ def _assert_dh_close(got, exp):
     torch.testing.assert_close(got, exp, atol=atol, rtol=1e-4)
 
 
-# The 64x64 layout, 64x64 at a base off the 16-byte grid, a small and a
-# MAX_HW generic map.
+# The 64x64 layout, 64x64 at a base off the 16-byte grid (Slots<16>), a
+# MAX_HW map (AnyMap), the resolution grid's and config #5's maps, and each
+# layout's edges (HEAD_SHAPES).
 @pytest.mark.cuda
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
@@ -311,8 +320,8 @@ def test_head_kernel_adversarial_rows(cuda, case, reg, preact):
         torch.testing.assert_close(got_r, exp_r, rtol=1e-5, atol=1e-5)
 
 
-# The backward on the same rows: Map64 takes the aligned 64x64 case, the
-# staged-row layout the others.
+# The backward on the same rows: Map64 takes the aligned 64x64 case,
+# WarpRow and Slots<S> the others up to 4,096 values, StagedRow the larger.
 @pytest.mark.cuda
 @pytest.mark.parametrize("preact", PREACT_KINDS)
 @pytest.mark.parametrize("reg", REG_KINDS)
@@ -333,25 +342,34 @@ def test_head_bwd_kernel_adversarial_rows(cuda, case, reg, preact):
 
 
 # Targets off the grid at sigma 0.7 px: rows whose sum G < 1 take the
-# contract's form of the Gaussian in the 64x64 layout.
+# contract's form of the Gaussian, in Map64, WarpRow and Slots<S>.
 @pytest.mark.cuda
 @pytest.mark.parametrize("reg", ["js", "kl", "mse"])
-def test_head_bwd_kernel_off_grid_targets(cuda, reg):
+@pytest.mark.parametrize("shape", [(256, 64, 64), (512, 7, 7), (512, 14, 14),
+                                   (512, 28, 28), (512, 56, 56)])
+def test_head_bwd_kernel_off_grid_targets(cuda, reg, shape):
+    n = shape[0]
     g = torch.Generator().manual_seed(5)
-    raw = (torch.randn((256, 64, 64), generator=g) * 3.0).to(cuda)
-    t = (torch.rand((256, 2), generator=g) * 2.4 - 1.2).to(cuda)
-    gc = torch.randn((256, 2), generator=g).to(cuda)
-    gr = torch.randn((256,), generator=g).to(cuda)
+    raw = (torch.randn(shape, generator=g) * 3.0).to(cuda)
+    t = (torch.rand((n, 2), generator=g) * 2.4 - 1.2).to(cuda)
+    gc = torch.randn((n, 2), generator=g).to(cuda)
+    gr = torch.randn((n,), generator=g).to(cuda)
     got = fused_dsnt_head_bwd(raw, t, gc, gr, sigma_px=0.7, reg=reg)
     exp = fused_dsnt_head_bwd_reference(raw, t, gc, gr, sigma_px=0.7, reg=reg)
     torch.cuda.synchronize()
     _assert_dh_close(got, exp)
 
 
-# Sums in a fixed order: two launches on the same inputs give the same bits.
+# Sums in a fixed order: two launches on the same inputs give the same
+# bits, in every layout: Map64, WarpRow (an odd row count too), Slots<4>,
+# Slots<16> and StagedRow.
+DETERMINISM_SHAPES = [(1024, 64, 64), (300, 7, 9), (512, 7, 7), (301, 14, 14),
+                      (512, 28, 28), (300, 32, 128), (40, 17, 241)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reg", REG_KINDS)
-@pytest.mark.parametrize("shape", [(1024, 64, 64), (300, 7, 9)])
+@pytest.mark.parametrize("shape", DETERMINISM_SHAPES)
 def test_head_bwd_kernel_deterministic(cuda, shape, reg):
     raw, t = _heads(shape, 41, cuda)
     g = torch.Generator().manual_seed(4)
@@ -362,6 +380,20 @@ def test_head_bwd_kernel_deterministic(cuda, shape, reg):
     second = fused_dsnt_head_bwd(raw, t, gc, gr, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", REG_KINDS)
+@pytest.mark.parametrize("shape", DETERMINISM_SHAPES)
+def test_head_kernel_deterministic(cuda, shape, reg):
+    raw, t = _heads(shape, 43, cuda)
+    kw = dict(sigma_px=1.0, reg=reg, preact="thresholded_softmax", threshold=0.5)
+    first = fused_dsnt_head(raw, t, **kw)
+    second = fused_dsnt_head(raw, t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    if first[1] is not None:
+        assert torch.equal(first[1], second[1])
 
 
 CALIB_TOL = {"copy": None, "exp": dict(rtol=1e-6, atol=0.0),
