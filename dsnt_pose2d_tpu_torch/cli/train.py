@@ -24,7 +24,9 @@ given beside it override its fields).  ``--device cpu`` runs it on the
 host (over gloo under a launcher).  ``--dashboard-port`` serves the
 live dashboard (:mod:`..train.dashboard`) while the run lasts,
 ``--profile-dir`` writes a ``torch.profiler`` trace of the second epoch
-(:mod:`..train.profiling`), both from rank 0, and ``--debug-nans`` stops
+(:mod:`..train.profiling`), its steps' spans by layer (``train.feed`` ...
+``train.optimizer``, the eval pass's ``serve.*``) on the kernels'
+timeline, both from rank 0, and ``--debug-nans`` stops
 at the first NaN (:func:`..train.loop.set_debug_nans`, process-wide as
 JAX's ``jax_debug_nans``).
 """
@@ -78,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "at its op); process-wide")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the second epoch "
-                        "here (a breakdown, not a timing)")
+                        "here, with each step's spans by layer (train.feed ... "
+                        "train.optimizer) on the kernels' timeline (a breakdown, "
+                        "not a timing)")
     return p
 
 

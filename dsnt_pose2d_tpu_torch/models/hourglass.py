@@ -27,6 +27,7 @@ from torch import nn
 
 from ..parallel import tp
 from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_size
+from ..utils.spans import span
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9     # flax's convention: the weight of the old statistic
@@ -86,14 +87,21 @@ class BatchNorm(nn.BatchNorm2d):
     again.  The ranks of a model group hold the same whole activations and
     take no part in it.  A remat recompute issues the all-reduce again, in
     the same order on every rank.
+
+    Each call, in either mode, is one ``bn`` span while a profiler records
+    (:mod:`..utils.spans`).
     """
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=_BN_EPS, momentum=1.0 - _BN_MOMENTUM)
 
     def forward(self, x):
-        if not self.training:
-            return super().forward(x)
+        with span("bn"):
+            if not self.training:
+                return super().forward(x)
+            return self._train_forward(x)
+
+    def _train_forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         ranks = axis_size(DATA_AXIS)

@@ -2,7 +2,8 @@
 ``tools/profile_step.py``).
 
 Writes a Chrome trace (Perfetto, ``chrome://tracing``) of ``--steps`` train
-steps (:func:`..train.profiling.trace_calls`) to
+steps (:func:`..train.profiling.trace_calls`), with each step's spans by
+layer (``train.feed`` ... ``train.optimizer``) over its kernels, to
 ``<out>/train_step.pt.trace.json`` (``--out`` defaulting to
 ``dsnt_profile_step/hg8`` in the temporary directory) and prints one JSON line: the step time
 (the two-point marginal of 10 and 20 steps, CUDA events on a card), the

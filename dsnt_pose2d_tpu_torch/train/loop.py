@@ -42,6 +42,13 @@ and ``predict`` gathers every data rank's rows.  The ``t`` ranks of a
 model group take the same rows and each holds its shards of the model
 (:mod:`..parallel.tp`); the Trainer and ``EvalDriver`` shard the model they
 are given.
+
+While a ``torch.profiler`` records, a train step is one ``train`` unit of
+:mod:`..utils.spans`' log and a serving call one ``serve`` unit, each
+with its spans by layer (``train.feed`` ... ``train.optimizer``,
+``serve.feed`` ... ``serve.head``); the resident wrappers' gathers are
+``train.feed`` spans logged before the steps they feed.  With no profiler
+the spans cost a read of a flag each.
 """
 
 from __future__ import annotations
@@ -67,7 +74,9 @@ from ..parallel import tp
 from ..parallel.mesh import (DATA_AXIS, all_reduce_sum_, axis_index, axis_size,
                              check_row_order, is_main_process, make_mesh,
                              world_size)
+from ..utils import spans
 from ..utils.config import Config
+from ..utils.spans import span
 from ..utils.visualization import render_skeleton, save_png
 from .state import TrainState, create_train_state, global_norm, step_seed
 
@@ -205,17 +214,22 @@ def _decode_averaged(model: PoseModel, cfg: Config, images):
     a mirrored pass is decoded too, whatever the head: ``images`` are NHWC,
     so the flip is along dim 2 (the width); its x is negated (exact on the
     symmetric pixel-center grid), the L/R joints are swapped and the two
-    decodes averaged.
+    decodes averaged.  The forward passes are ``serve.backbone`` spans and
+    the decodes ``serve.head`` spans, in the eval step too.
     """
-    output = model.forward(images, train=False)
-    coords_norm = model.decode(output)
+    with span("serve.backbone"):
+        output = model.forward(images, train=False)
+    with span("serve.head"):
+        coords_norm = model.decode(output)
     if cfg.train.flip_eval:
-        coords_f = model.decode(model.forward(torch.flip(images, dims=(2,)),
-                                              train=False))
-        perm = flip_permutation(coords_f.shape[-2], device=coords_f.device)
-        coords_f = torch.stack([-coords_f[..., 0], coords_f[..., 1]],
-                               dim=-1)[..., perm, :]
-        coords_norm = 0.5 * (coords_norm + coords_f)
+        with span("serve.backbone"):
+            output_f = model.forward(torch.flip(images, dims=(2,)), train=False)
+        with span("serve.head"):
+            coords_f = model.decode(output_f)
+            perm = flip_permutation(coords_f.shape[-2], device=coords_f.device)
+            coords_f = torch.stack([-coords_f[..., 0], coords_f[..., 1]],
+                                   dim=-1)[..., perm, :]
+            coords_norm = 0.5 * (coords_norm + coords_f)
     return output, coords_norm
 
 
@@ -294,26 +308,33 @@ def make_train_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
     state = create_train_state(model, cfg, steps_per_epoch)
 
     def train_step(batch: dict, draws: dict | None = None) -> dict:
-        batch = _on_device(batch, dev)
-        if draws is None:
-            draws = _rank_draws(batch["canvases"].shape[0], cfg, dev,
-                                step_seed(state.seed, state.step))
-        with torch.no_grad():
-            pre = _preprocess(batch, cfg, in_size, draws)
-        output = model.forward(pre["images"], train=True)
-        loss, aux = model.loss(output, pre["coords"], pre["mask"])
-        metrics = _sum_over_ranks(
-            {"loss": loss, **{k: aux[k] for k in AUX_METRICS if k in aux}})
-        state.optimizer.zero_grad()
-        check = None
-        if _DEBUG_NANS:
-            _backward_checked(loss, global_loss=metrics["loss"])
-            check = functools.partial(_check_grads, model.net.named_parameters())
-        else:
-            loss.backward()
-        grad_norm = state.optimizer.step(check)
-        state.step += 1
-        return {"loss": metrics.pop("loss"), "grad_norm": grad_norm, **metrics}
+        with spans.unit("train"):
+            with span("train.feed"):
+                batch = _on_device(batch, dev)
+                if draws is None:
+                    draws = _rank_draws(batch["canvases"].shape[0], cfg, dev,
+                                        step_seed(state.seed, state.step))
+            with span("train.preprocess"), torch.no_grad():
+                pre = _preprocess(batch, cfg, in_size, draws)
+            with span("train.backbone"):
+                output = model.forward(pre["images"], train=True)
+            with span("train.head"):
+                loss, aux = model.loss(output, pre["coords"], pre["mask"])
+                metrics = _sum_over_ranks(
+                    {"loss": loss, **{k: aux[k] for k in AUX_METRICS if k in aux}})
+            with span("train.optimizer"):
+                state.optimizer.zero_grad()
+            check = None
+            with span("train.backward"):
+                if _DEBUG_NANS:
+                    _backward_checked(loss, global_loss=metrics["loss"])
+                    check = functools.partial(_check_grads, model.net.named_parameters())
+                else:
+                    loss.backward()
+            with span("train.optimizer"):
+                grad_norm = state.optimizer.step(check)
+            state.step += 1
+            return {"loss": metrics.pop("loss"), "grad_norm": grad_norm, **metrics}
 
     train_step.state = state
     return train_step
@@ -360,7 +381,9 @@ def make_resident_step(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE,
     train_step = train_step or make_train_fn(model, cfg, device, steps_per_epoch)
 
     def step(resident: dict, idx: torch.Tensor, draws: dict | None = None):
-        return train_step(_resident_gather(resident, idx), draws)
+        with span("train.feed"):
+            batch = _resident_gather(resident, idx)
+        return train_step(batch, draws)
 
     step.state = train_step.state
     return step
@@ -376,7 +399,9 @@ def make_resident_multi_step(model: PoseModel, cfg: Config,
 
     def resident_multi(resident: dict, idx_k: torch.Tensor,
                        draws: list | None = None):
-        return multi(_resident_gather(resident, idx_k), draws)
+        with span("train.feed"):
+            super_batch = _resident_gather(resident, idx_k)
+        return multi(super_batch, draws)
 
     resident_multi.state = multi.state
     return resident_multi
@@ -417,14 +442,19 @@ def make_infer_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
 
     @torch.inference_mode()
     def infer_step(batch: dict) -> torch.Tensor:
-        batch = _on_device(batch, dev)
-        preds = []
-        for s in _eval_scales(cfg):
-            pre = _preprocess(batch, cfg, in_size, eval_scale=s)
-            _, coords_norm = _decode_averaged(model, cfg, pre["images"])
-            preds.append(_to_original_px(coords_norm, pre["crop_from_orig"],
-                                         in_size))
-        return sum(preds) / len(preds)
+        with spans.unit("serve"):
+            with span("serve.feed"):
+                batch = _on_device(batch, dev)
+            preds = []
+            for s in _eval_scales(cfg):
+                with span("serve.preprocess"):
+                    pre = _preprocess(batch, cfg, in_size, eval_scale=s)
+                _, coords_norm = _decode_averaged(model, cfg, pre["images"])
+                with span("serve.head"):
+                    preds.append(_to_original_px(coords_norm, pre["crop_from_orig"],
+                                                 in_size))
+            with span("serve.head"):
+                return sum(preds) / len(preds)
 
     return infer_step
 

@@ -1,4 +1,4 @@
-"""Profiling hook for the Trainer (port of
+"""Profiling hooks for the Trainer and the tools (port of
 ``dsnt_pose2d_tpu/train/profiling.py``).
 
 :func:`trace_calls` traces a number of calls of a function (a train step:
@@ -7,7 +7,10 @@
 epoch (the second by default, so that the first epoch's kernel builds and
 cuDNN's algorithm searches stay out of it) into a directory, as a Chrome
 trace (``epoch<N>.pt.trace.json``) that Perfetto or ``chrome://tracing``
-opens.  It records host and, on the card, device activities.
+opens.  Both record host and, on the card, device activities.  While they
+record, the steps' spans by layer (:mod:`..utils.spans`: ``train.feed`` ...
+``train.optimizer``, ``serve.feed`` ... ``serve.head``) are on, so the
+trace carries them on the timeline of the kernels they launched.
 
 The trace is a breakdown, never a timing: the profiler slows the host's
 dispatch, and it has been seen to drop device activities in a process
@@ -20,7 +23,7 @@ from __future__ import annotations
 import os
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 
 def make_profile_hook(out_dir: str, epoch_to_trace: int = 1):
@@ -69,8 +72,3 @@ def trace_calls(fn, calls: int, path: str) -> str:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     prof.export_chrome_trace(path)
     return path
-
-
-def annotate(name: str):
-    """Named range on the trace's timeline: ``with annotate("stack3"): ...``"""
-    return record_function(name)
