@@ -140,6 +140,28 @@ HEAD_BWD_TOL = {"atol": 2e-6, "atol_of_max": 5e-6, "rtol": 1e-4}
 # backward, whose weight-gradient reductions use atomics in no fixed order:
 # two runs of the same step differ there, so it is held at 1e-2.
 TRAIN_TOL = {"loss_rtol": 1e-5, "dheat_rel_to_max": 1e-4, "grad_norm_rtol": 1e-2}
+# The train step with train-mode BN's kernels against the same step with
+# BN's plain composition: both compute flax's formula in fp32 from the bf16
+# activations, but each sums a channel's values in its own order, and the
+# random bf16 network carries that difference to its loss and gradients.
+# Witnesses measure how far the plain step moves when only its statistics'
+# summation order changes (the batch rows taken in BN_WITNESSES' orders);
+# the kernels' step is held within BN_WITNESS_FACTOR times the worst
+# witness, or the floor of BN_STEP_TOL (the dp phase's bf16 bound, where
+# ranks sum in another order than one process), whichever is larger.  Each
+# BN call on its own is held tightly at the step's shapes (BN_CALL_TOL).
+BN_STEP_TOL = {"loss_rtol": 1e-2, "grad_norm_rtol": 1e-2}
+BN_WITNESSES = ("reversed_rows", "permuted_rows", "permuted_rows_2")
+BN_WITNESS_FACTOR = 3.0
+# One BN call, kernel against plain: sums of a channel's values in fp32 in
+# two orders differ by ~1e-6 of the sum of the terms' magnitudes (held at
+# 1e-4); y and dx within 1e-5 of a value and 1e-4 of the largest, plus one
+# ulp of the input dtype (bf16: up to 2**-7 of a value) where the two land
+# on either side of a rounding boundary.  (tests/test_torch_kernels.py
+# holds the same at the card's shapes.)
+BN_CALL_TOL = {"sums_of_terms": 1e-4, "rel": 1e-5, "of_max": 1e-4,
+               "bf16_ulp": 2.0 ** -7}
+BN_TIME_CALLS = 5          # calls a window for the BN timings (device_ms)
 # The calibration kernels against their plain versions: copy is one fp32 add
 # (bitwise); exp is full-precision expf against torch.exp (a few ulp at
 # most); the softmax sums 4096 terms in another order than torch.softmax.
@@ -1022,9 +1044,12 @@ def phase_train(dev, card):
     temper_scores(model.net, images, train=True)
     run = train_vs_plain(model, cfg, batch, dev, STEPS,
                          {"dsnt_head_fwd": STEPS, "dsnt_head_bwd": STEPS,
-                          "row_shift": 2 * STEPS}, calls={})
+                          "row_shift": 2 * STEPS}, calls={}, bn_plain=True)
     train_step, plain_step = run["step"], run["plain_step"]
     assert train_step.state.step == STEPS
+    with recording_bn({}) as bn_seen:     # one more step: BN's calls by shape
+        train_step(batch)
+    torch.cuda.synchronize()
     metrics, first, heat = run["metrics"], run["metrics"][0], run["heat"]
     max_prob = torch.softmax(heat[-1].flatten(2), -1).amax(-1).mean()
     emit("train_step", config=str(CONFIG.relative_to(ROOT)), batch=BATCH,
@@ -1033,7 +1058,8 @@ def phase_train(dev, card):
          euclidean=first["euclidean"].item(), reg=first["reg"].item(),
          heatmap_logit_std=heat.std().item(),
          last_stack_mean_max_prob=max_prob.item(),
-         plain_path=run["plain_path"], tolerance=TRAIN_TOL)
+         plain_path=run["plain_path"], tolerance=TRAIN_TOL,
+         bn_plain_path=run["bn_plain_path"])
 
     # Interleaved, as for the serve steps: kernel, plain, kernel.
     def plain_train():
@@ -1061,7 +1087,7 @@ def phase_train(dev, card):
     instances = profile_step("train_step", lambda: train_step(batch), step_ms[0],
                              card)
     return {"cfg": cfg, "batch": batch, "pre_args": pre_args,
-            "launches": run["launches"],
+            "launches": run["launches"], "bn_calls": bn_seen,
             "train_img_per_s": BATCH / step_ms[0] * 1e3,
             "profile_instances": instances,
             "row_shift_calls": run["row_shift_calls"],
@@ -1132,14 +1158,276 @@ def phase_head_bwd_on_main_path(train, card):
             "bitwise_equal_across_launches": True, "layout": "Map64"}
 
 
-def train_vs_plain(model, cfg, batch, dev, steps, expected, calls=None):
-    """``steps`` counted train steps (launches held against ``expected``),
-    then the first step again from the same weights (the draws are a
-    function of (seed, step) only) on the plain head and plain row_shift,
-    held to TRAIN_TOL; returns the metrics, the launches, the row_shift
-    calls (into ``calls``: see :func:`recording_row_shift`; a list if None),
-    the first step's heatmaps and dL/dheatmaps, both steps and the
-    comparison."""
+def bn_calls(net, steps: int = 1, remat: bool = False) -> dict:
+    """The train-mode BN calls of ``steps`` train steps of ``net``: a forward
+    and a backward of each BatchNorm a step, and with remat a second forward
+    of each BatchNorm inside an hourglass stack (the scope recomputed in the
+    backward pass)."""
+    from dsnt_pose2d_tpu_torch.models.hourglass import BatchNorm, Hourglass
+
+    n = sum(isinstance(m, BatchNorm) for m in net.modules())
+    again = sum(isinstance(m, BatchNorm) for h in net.modules()
+                if isinstance(h, Hourglass) for m in h.modules()) if remat else 0
+    return {"bn_fwd": steps * (n + again), "bn_bwd": steps * n}
+
+
+def bn_reordered(order: str):
+    """The plain composition with its statistics summed over the batch rows
+    in another order (``order`` of BN_WITNESSES): the same function, other
+    fp32 rounding."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm
+
+    def bn(x, weight, bias, running_mean, running_var, eps=batch_norm.EPS,
+           relu=False, update_running=True):
+        n = x.shape[0]
+        if order == "reversed_rows":
+            rows = torch.arange(n - 1, -1, -1)
+        else:
+            seed = {"permuted_rows": 1, "permuted_rows_2": 2}[order]
+            rows = torch.from_numpy(np.random.default_rng(seed).permutation(n))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xr, dims = xf.index_select(0, rows.to(x.device)), (0, 2, 3)
+        mean, mean2 = xr.mean(dim=dims), (xr * xr).mean(dim=dims)
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        if update_running:
+            with torch.no_grad():
+                m = batch_norm.MOMENTUM
+                running_mean.copy_(m * running_mean + (1 - m) * mean.detach())
+                running_var.copy_(m * running_var + (1 - m) * var.detach())
+        mul = torch.rsqrt(var + eps) * weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + bias[:, None, None]).to(x.dtype)
+        return torch.relu(y) if relu else y
+
+    return bn
+
+
+@contextlib.contextmanager
+def plain_bn(order=None):
+    """Train-mode BN on its plain torch-op composition in place of its
+    kernels; with ``order``, the composition of :func:`bn_reordered`."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm
+
+    kernel = batch_norm.batch_norm_train
+    batch_norm.batch_norm_train = (batch_norm.batch_norm_train_reference
+                                   if order is None else bn_reordered(order))
+    try:
+        yield
+    finally:
+        batch_norm.batch_norm_train = kernel
+
+
+@contextlib.contextmanager
+def recording_bn(calls):
+    """Train-mode BN calls pass on to the kernels; the first call of each
+    (shape, dtype, ReLU, layout) is kept in ``calls`` with its input,
+    weight and bias, and every call is counted under its key."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm
+
+    kernel = batch_norm.batch_norm_train
+
+    def record(x, weight, bias, running_mean, running_var, eps=batch_norm.EPS,
+               relu=False, update_running=True):
+        key = (tuple(x.shape), str(x.dtype).replace("torch.", ""), relu,
+               "nchw" if batch_norm.layout_of(x) == batch_norm.PLANES else "channels_last")
+        if key not in calls:
+            calls[key] = {"x": x.detach().clone(), "weight": weight.detach().clone(),
+                          "bias": bias.detach().clone(), "relu": relu, "count": 0}
+        calls[key]["count"] += 1
+        return kernel(x, weight, bias, running_mean, running_var, eps, relu,
+                      update_running)
+
+    batch_norm.batch_norm_train = record
+    try:
+        yield calls
+    finally:
+        batch_norm.batch_norm_train = kernel
+
+
+def bn_close(name, got, exp, dtype, terms=None):
+    """``got`` against ``exp`` by BN_CALL_TOL: sums of ``terms`` (given) or
+    values of ``dtype``; returns the largest error over its limit (<= 1)
+    and the largest error."""
+    got, exp = got.double(), exp.double()
+    err = (got - exp).abs()
+    if terms is not None:
+        lim = BN_CALL_TOL["sums_of_terms"] * terms + 1e-6
+    else:
+        ulp = BN_CALL_TOL["bf16_ulp"] if dtype == torch.bfloat16 else BN_CALL_TOL["rel"]
+        lim = ulp * exp.abs() + BN_CALL_TOL["of_max"] * exp.abs().max()
+    worst = (err / lim.clamp_min(1e-30)).max().item()
+    if worst > 1:
+        raise AssertionError(f"BN kernel vs plain, {name}: {worst:.3g} of its limit")
+    return worst, err.max().item()
+
+
+def bn_call_vs_plain(call, dev):
+    """One recorded BN call's forward and backward on the kernels against the
+    plain composition (its ReLU mask taken from the kernel's output), and a
+    second kernel run bitwise equal to the first; returns the readings, the
+    tensors the timings reuse."""
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm
+
+    x, relu = call["x"], call["relu"]
+    c = x.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype).contiguous(
+        memory_format=torch.channels_last if batch_norm.layout_of(x) == batch_norm.ROWS
+        else torch.contiguous_format)
+    rm0, rv0 = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+
+    def run(fn, relu_, grad):
+        w = call["weight"].clone().requires_grad_(True)
+        b = call["bias"].clone().requires_grad_(True)
+        rm, rv = rm0.clone(), rv0.clone()
+        xg = x.clone().requires_grad_(True)
+        y = fn(xg, w, b, rm, rv, relu=relu_)
+        dx, dw, db = torch.autograd.grad(y, (xg, w, b), grad)
+        return y.detach(), rm, rv, dx, dw, db
+
+    got = run(batch_norm.batch_norm_train, relu, dy)
+    again = run(batch_norm.batch_norm_train, relu, dy)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not bitwise:
+        raise AssertionError("two runs of the BN kernels differ")
+    mask = (got[0] > 0).to(x.dtype) if relu else torch.ones((), dtype=x.dtype, device=dev)
+    exp = run(batch_norm.batch_norm_train_reference, False, dy * mask)
+    if relu:
+        exp = (torch.relu(exp[0]), *exp[1:])
+    xf, dims = x.double(), (0, 2, 3)
+    n = xf.numel() // c
+    g = dy.double() * mask.double()
+    mean = xf.mean(dims)
+    rstd = torch.rsqrt(((xf * xf).mean(dims) - mean * mean).clamp_min(0) + batch_norm.EPS)
+    xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
+    held = {
+        "y": bn_close("y", got[0], exp[0], x.dtype),
+        "dx": bn_close("dx", got[3], exp[3], x.dtype),
+        # the running statistics move by 0.1 of the batch's (mean, var)
+        "running_mean": bn_close("running_mean", got[1], exp[1], None,
+                                 0.1 * xf.abs().sum(dims) / n),
+        "running_var": bn_close("running_var", got[2], exp[2], None,
+                                0.1 * (xf * xf).sum(dims) / n),
+        "dweight": bn_close("dweight", got[4], exp[4], None, (g * xhat).abs().sum(dims)),
+        "dbias": bn_close("dbias", got[5], exp[5], None, g.abs().sum(dims))}
+    return {"worst_of_limit": {k: v[0] for k, v in held.items()},
+            "max_abs_err": {k: v[1] for k, v in held.items()},
+            "bitwise_equal_across_runs": True}, dy
+
+
+def bn_times(calls, ceiling, dev) -> dict:
+    """Each recorded BN call held (:func:`bn_call_vs_plain`) and timed
+    forward and backward: the kernels, the plain composition and, as the
+    yardstick, ``F.batch_norm`` in train mode (+ ``F.relu``), a library call
+    the port never makes; per call and summed over a step's calls, with the
+    bytes bound (bf16: 4 bytes a value forward, x read and y written; 6
+    backward, x and dy read, dx written; plus the parameter vectors) and
+    the share of the measured ceiling."""
+    import torch.nn.functional as F
+
+    from dsnt_pose2d_tpu_torch.bench import timing
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm
+
+    per_call, step = {}, {"fwd": {}, "bwd": {}}
+    for key, call in calls.items():
+        held, dy = bn_call_vs_plain(call, dev)
+        x, relu, c = call["x"], call["relu"], call["x"].shape[1]
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        w = call["weight"].clone().requires_grad_(True)
+        b = call["bias"].clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+
+        def library(xx, ww, bb, rmean, rvar, relu=False):
+            y = F.batch_norm(xx, rmean, rvar, ww, bb, training=True,
+                             momentum=1 - batch_norm.MOMENTUM, eps=batch_norm.EPS)
+            return F.relu(y) if relu else y
+
+        times = {}
+        for name, fn in (("ms", batch_norm.batch_norm_train),
+                         ("plain_ms", batch_norm.batch_norm_train_reference),
+                         ("library_ms", library)):
+            with torch.no_grad():
+                f_ms, _ = timing.device_ms(lambda: fn(x, w, b, rm, rv, relu=relu),
+                                           calls=BN_TIME_CALLS)
+            y = fn(xg, w, b, rm, rv, relu=relu)
+            b_ms, _ = timing.device_ms(
+                lambda: torch.autograd.grad(y, (xg, w, b), dy, retain_graph=True),
+                calls=BN_TIME_CALLS)
+            times[name] = {"fwd": f_ms, "bwd": b_ms}
+            del y
+        values = x.numel()
+        nbytes = {"fwd": 2 * x.element_size() * values + 6 * 4 * c,
+                  "bwd": 3 * x.element_size() * values + 4 * 4 * c}
+        name = "x".join(map(str, key[0])) + f"_{key[1]}" + ("_relu" if relu else "")
+        per_call[name] = {"count": call["count"], "layout": key[3], **held}
+        for d in ("fwd", "bwd"):
+            b_ms, by = bound_ms(nbytes[d], 0)
+            per_call[name][d] = {
+                **{k: times[k][d] for k in times}, "bound_ms": b_ms, "bound_by": by,
+                "bytes": nbytes[d],
+                "frac_of_ceiling": nbytes[d] / times["ms"][d] / 1e6 / ceiling}
+            tot = step[d]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes"):
+                tot[k] = tot.get(k, 0.0) + call["count"] * per_call[name][d][k]
+    for d in ("fwd", "bwd"):
+        step[d]["bound_by"] = "bytes"
+        step[d]["frac_of_ceiling"] = step[d]["bytes"] / step[d]["ms"] / 1e6 / ceiling
+    return {"per_step": step, "per_call": per_call,
+            "calls_per_step": sum(c["count"] for c in calls.values()),
+            "max_worst_of_limit": max(max(v["worst_of_limit"].values())
+                                      for v in per_call.values()),
+            "max_abs_err": {d: max(v["max_abs_err"][d] for v in per_call.values())
+                            for d in ("y", "dx")},
+            "tolerance": BN_CALL_TOL}
+
+
+def bn_step_vs_plain(first, cfg, batch, dev, start) -> dict:
+    """The first train step (``first``: its metrics, from ``start``) against
+    the same step with BN's plain composition, held relative to the
+    witnesses of BN_WITNESSES (the plain step with its statistics summed in
+    another order): loss and grad norm, relative."""
+    from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
+    from dsnt_pose2d_tpu_torch.ops import cuda as kernels
+    from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
+
+    steps = {}
+    for order in (None, *BN_WITNESSES):
+        bn_model = build_pose_model(cfg.model, device=dev, seed=0)
+        bn_model.net.load_state_dict(start)
+        kernels.reset_launch_counts()
+        with plain_bn(order):
+            m = make_train_fn(bn_model, cfg, device=dev)(batch)
+        torch.cuda.synchronize()
+        assert not any(kernels.launch_counts()[k] for k in ("bn_fwd", "bn_bwd"))
+        steps[order or "plain"] = {k: m[k].item() for k in ("loss", "grad_norm")}
+        del bn_model, m
+    plain = steps["plain"]
+
+    def rel(a):
+        return {"loss_rtol": abs(a["loss"] - plain["loss"]) / abs(plain["loss"]),
+                "grad_norm_rtol": abs(a["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]}
+
+    got = rel({k: first[k].item() for k in ("loss", "grad_norm")})
+    witnesses = {w: rel(steps[w]) for w in BN_WITNESSES}
+    limit = {k: max(floor, BN_WITNESS_FACTOR * max(w[k] for w in witnesses.values()))
+             for k, floor in BN_STEP_TOL.items()}
+    out = {"plain": plain, "kernels_vs_plain": got, "witnesses": witnesses,
+           "limit": limit, "floor": BN_STEP_TOL, "witness_factor": BN_WITNESS_FACTOR}
+    if any(got[k] > limit[k] for k in limit):
+        raise AssertionError(f"train step, BN kernels vs BN's plain path: {out}")
+    return out
+
+
+def train_vs_plain(model, cfg, batch, dev, steps, expected, calls=None,
+                   bn_plain=False):
+    """``steps`` counted train steps (launches held against ``expected`` and
+    :func:`bn_calls`), then the first step again from the same weights (the
+    draws are a function of (seed, step) only) on the plain head and plain
+    row_shift, held to TRAIN_TOL; with ``bn_plain``, the first step on BN's
+    plain composition too (:func:`bn_step_vs_plain`).  Returns the
+    metrics, the launches, the row_shift calls (into ``calls``: see
+    :func:`recording_row_shift`; a list if None), the first step's heatmaps
+    and dL/dheatmaps, both steps and the comparisons."""
     from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
     from dsnt_pose2d_tpu_torch.ops import cuda as kernels
     from dsnt_pose2d_tpu_torch.train.loop import make_train_fn
@@ -1164,7 +1452,8 @@ def train_vs_plain(model, cfg, batch, dev, steps, expected, calls=None):
             metrics.append(train_step(batch))
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = {**dict.fromkeys(launches, 0), **expected}
+    expected = {**dict.fromkeys(launches, 0),
+                **bn_calls(model.net, steps, cfg.model.remat), **expected}
     if launches != expected:
         raise AssertionError(f"train launches {launches}, expected {expected}")
     losses = [m["loss"].item() for m in metrics]
@@ -1180,9 +1469,15 @@ def train_vs_plain(model, cfg, batch, dev, steps, expected, calls=None):
         ref = plain_step(batch)
     torch.cuda.synchronize()
     grab["on"] = False
-    hook.remove()
     plain_hook.remove()
-    assert not any(kernels.launch_counts().values()), kernels.launch_counts()
+    # BN's kernels stay on: the step differs from the main path's by the
+    # head's and row_shift's plain versions alone.
+    want = {**dict.fromkeys(launches, 0), **bn_calls(model.net, 1, cfg.model.remat)}
+    assert kernels.launch_counts() == want, kernels.launch_counts()
+    bn_path = None
+    if bn_plain:
+        bn_path = bn_step_vs_plain(metrics[0], cfg, batch, dev, start)
+    hook.remove()
     first = metrics[0]
     loss_rel = abs(first["loss"].item() - ref["loss"].item()) / abs(ref["loss"].item())
     dheat, dheat_ref = grab["dheat"]
@@ -1200,7 +1495,7 @@ def train_vs_plain(model, cfg, batch, dev, steps, expected, calls=None):
             f"dL/dheatmaps rel {dheat_rel}, grad norm rel {norm_rel}")
     return {"metrics": metrics, "losses": losses, "launches": launches,
             "row_shift_calls": calls, "heat": grab["heat"][0], "dheat": dheat,
-            "step": train_step, "plain_step": plain_step,
+            "step": train_step, "plain_step": plain_step, "bn_plain_path": bn_path,
             "plain_path": {"loss": ref["loss"].item(), "loss_rel_diff": loss_rel,
                            "heatmaps_bitwise_equal": heat_equal,
                            "dheat_max_diff": dheat_err,
@@ -1374,13 +1669,23 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
     t = pre["coords"][None]
     fwd, _ = head_on_rows(heat, t, "none", m.preact, ceiling)
 
-    # Train: tempered in train mode, counted, against the plain path.
+    # Train: tempered in train mode, counted, against the plain path (and,
+    # where the backbone has BNs, the ResNet's, against BN's plain path).
     temper_scores(model.net, pre["images"], train=True)
+    has_bn = bn_calls(model.net)["bn_fwd"] > 0
     train = train_vs_plain(model, cfg, batch, dev, STEPS,
                            {"dsnt_head_fwd": STEPS, "dsnt_head_bwd": STEPS,
-                            "row_shift": 2 * STEPS})
+                            "row_shift": 2 * STEPS}, bn_plain=has_bn)
     assert set(train["metrics"][0]) == HEAD_METRICS["dsnt"]
     train_step = train["step"]
+    bn = None
+    if has_bn:
+        with recording_bn({}) as bn_seen:
+            train_step(batch)
+        torch.cuda.synchronize()
+        bn = bn_times(bn_seen, ceiling, dev)
+        del bn_seen
+        torch.cuda.empty_cache()
     train_ms = timing.time_ms(lambda: train_step(batch), spread=True)
     train_peak = peak_memory(lambda: train_step(batch))
     instances = profile_step(f"{phase}_train_step", lambda: train_step(batch),
@@ -1428,7 +1733,9 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
          train={"losses": train["losses"],
                 "grad_norms": [mm["grad_norm"].item() for mm in train["metrics"]],
                 "metric_keys": sorted(train["metrics"][0]),
-                "vs_plain": train["plain_path"], "tolerance": TRAIN_TOL},
+                "vs_plain": train["plain_path"], "tolerance": TRAIN_TOL,
+                "vs_bn_plain": train["bn_plain_path"]},
+         bn=bn,
          heatmap_logit_std=heat.std().item(),
          infer_ms=infer_ms[0], infer_img_per_s=BATCH / infer_ms[0] * 1e3,
          eval_ms=eval_ms[0], eval_img_per_s=BATCH / eval_ms[0] * 1e3,
@@ -1444,7 +1751,7 @@ def drive_448px(phase, path, cfg, dev, card, ceiling):
          clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
     del eval_step, infer_step, train, train_step
     return {"launches": launches, "fwd": fwd, "bwd": bwd, "row_shift": shift,
-            "max_row_shift_err": 0.0, "train_ms": train_ms[0],
+            "bn": bn, "max_row_shift_err": 0.0, "train_ms": train_ms[0],
             "train_peak": train_peak, "model": model, "batch": batch}
 
 
@@ -1503,9 +1810,10 @@ def remat_vs_no_remat(phase, cfg, state, batch, dev, card):
             metrics = step(batch)
             torch.cuda.synchronize()
             got = kernels.launch_counts()
-            if got != {**dict.fromkeys(got, 0), **expected}:
+            want = {**dict.fromkeys(got, 0), **bn_calls(model.net, 1, remat), **expected}
+            if got != want:
                 raise AssertionError(f"{phase} remat={remat} launches {got}, "
-                                     f"expected {expected}")
+                                     f"expected {want}")
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
             runs[remat] = {
@@ -2106,6 +2414,7 @@ def phase_trainer(dev, card, device_step_img_per_s):
             launches = kernels.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             expected = {**dict.fromkeys(launches, 0),
+                        **bn_calls(trainer.model.net, steps),
                         "dsnt_head_fwd": steps + 2 * TRAINER_EPOCHS * eval_steps,
                         "dsnt_head_bwd": steps,
                         "row_shift": 2 * (steps + TRAINER_EPOCHS * eval_steps)}
@@ -3055,7 +3364,9 @@ def phase_dp(dev, card):
         for r in (a, b):
             want = {"dsnt_head_fwd": len(r["metrics"]),
                     "dsnt_head_bwd": len(r["metrics"]),
-                    "row_shift": 2 * len(r["metrics"])}
+                    "row_shift": 2 * len(r["metrics"]),
+                    "bn_fwd": r["bns"] * len(r["metrics"]),
+                    "bn_bwd": r["bns"] * len(r["metrics"])}
             if {k: r["launches"].get(k, 0) for k in want} != want:
                 raise AssertionError(f"dp {kind} rank launches {r['launches']}")
             for c, n in zip(r["collectives"], r["grad_buckets"]):
@@ -3243,8 +3554,10 @@ def phase_tp(dev, card):
                    if rank["shapes"].get(k) != v}
             raise AssertionError(f"tp rank {r} shard shapes (got, want): {bad}")
         launches = {k: rank["launches"].get(k, 0)
-                    for k in ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift")}
-        if launches != {"dsnt_head_fwd": 1, "dsnt_head_bwd": 1, "row_shift": 2}:
+                    for k in ("dsnt_head_fwd", "dsnt_head_bwd", "row_shift",
+                              "bn_fwd", "bn_bwd")}
+        if launches != {"dsnt_head_fwd": 1, "dsnt_head_bwd": 1, "row_shift": 2,
+                        "bn_fwd": rank["bns"], "bn_bwd": rank["bns"]}:
             raise AssertionError(f"tp rank {r} launches {rank['launches']}")
         if rank["collectives"][0] != {"all_reduce": rank["model_collectives"][0]
                                       ["counts"]["all_reduce"], "broadcast": 1}:
@@ -3645,8 +3958,11 @@ def phase_tools(dev, card, ceiling, conv_core):
                                    tools_cell_launches(BATCH, TOOLS_EPOCHS).items()},
                     "flagship": tools_cell_launches(16, TOOLS_FLAGSHIP_EPOCHS)}
         for name, counts in launches.items():
-            want = {**dict.fromkeys(counts, 0), **expected[name]}
-            if counts != want:
+            # BN's calls follow each cell's model: held as one backward a
+            # forward, and through the kernels.
+            want = {**dict.fromkeys(counts, 0), **expected[name],
+                    "bn_fwd": counts["bn_fwd"], "bn_bwd": counts["bn_fwd"]}
+            if counts != want or not counts["bn_fwd"]:
                 raise AssertionError(f"tools {name} launches {counts}, "
                                      f"expected {want}")
 
@@ -3819,7 +4135,8 @@ def phase_jax_ckpt(dev, card):
             got = step(batch, draws=draws)
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
-            if {k: v for k, v in counts.items() if v} != JAX_CKPT_STEP_LAUNCHES:
+            if {k: v for k, v in counts.items() if v} != {
+                    **JAX_CKPT_STEP_LAUNCHES, **bn_calls(model.net, 1, cfg.model.remat)}:
                 raise AssertionError(f"jax_ckpt resumed step launches {counts}")
             add(launches, counts)
             rel = {k: abs(got[k].item() - step_ref[k]) / abs(step_ref[k])
@@ -4016,6 +4333,8 @@ def main():
     bwd = phase_head_bwd_on_main_path(train, card)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], bwd_err)
     emit("dsnt_head_bwd_times", card=card, **bwd)
+    bn_train = bn_times(train["bn_calls"], ceiling, dev)
+    emit("bn_times", card=card, path="train", base="hg8", **bn_train)
     shift_err, shift_legacy = phase_row_shift_vs_plain(recorded)
     shift, shift_lib_err = phase_row_shift_timing(recorded, ceiling)
     emit("row_shift_times", card=card, by_path=shift, library_err=shift_lib_err,
@@ -4111,6 +4430,21 @@ def main():
          "legacy_check": shift_legacy,
          "frac_of_ceiling": frac_of_ceiling(shift_bytes, shift["serve"]["ms"])},
     ]
+    # ms and the other times: the BN calls of one hg8 train step, forward or
+    # backward; ResNet-50 2x's under at_resnet50_2x, each shape's under
+    # bn_times.
+    for d in ("fwd", "bwd"):
+        t, r = bn_train["per_step"][d], resnet["bn"]["per_step"][d]
+        entries.append(
+            {"name": f"bn_{d}", "route": "cuda",
+             "source": "dsnt_pose2d_tpu_torch/ops/cuda/batch_norm.cu",
+             "replaces": "none (train-mode BN's torch-op composition)",
+             **launches(f"bn_{d}"),
+             "max_abs_err": max(bn_train["max_abs_err"]["y" if d == "fwd" else "dx"],
+                                resnet["bn"]["max_abs_err"]["y" if d == "fwd" else "dx"]),
+             **{k: t[k] for k in keys},
+             "frac_of_ceiling": t["frac_of_ceiling"],
+             "at_resnet50_2x": {k: r[k] for k in (*keys, "frac_of_ceiling")}})
     for kind, line in (("copy", 247), ("exp", 250), ("smax", 253)):
         t = calib_times[kind]
         entries.append(
@@ -4126,6 +4460,8 @@ def main():
         assert e["launches"] > 0, e["name"]
     for e in entries[3:]:
         assert math.isfinite(e["library_ms"]), e["name"]
+    for e in entries[3:5]:
+        assert e["launches_by_path"]["serve"] == 0, e      # eval BN is stock
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

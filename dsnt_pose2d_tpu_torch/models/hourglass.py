@@ -25,12 +25,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops.cuda import batch_norm as bn_ops
 from ..parallel import tp
-from ..parallel.mesh import DATA_AXIS, all_reduce_sum, axis_size
 from ..utils.spans import span
 
-_BN_EPS = 1e-5
-_BN_MOMENTUM = 0.9     # flax's convention: the weight of the old statistic
 _AUTOCAST_DTYPES = (torch.bfloat16, torch.float16)
 
 # Set in the thread that recomputes a :func:`remat` scope's forward in the
@@ -66,70 +64,48 @@ def remat(module: nn.Module, *args):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW, then a
+    ReLU when ``relu`` (set where the model builds it: a ReLU that follows
+    the BN directly).
 
     Eval mode normalizes with the running statistics (stock
-    ``BatchNorm2d``).  Train mode reproduces flax's ``_compute_stats`` and
-    ``_normalize``: batch statistics in at least fp32 whatever the input
-    dtype, the fast variance ``E[x^2] - E[x]^2`` clamped at 0,
-    ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in that precision,
-    cast back to the input's dtype; the running statistics move by
-    ``r <- 0.9 r + 0.1 stat`` with the BIASED batch variance, where stock
-    ``BatchNorm2d`` takes the unbiased one.  ``num_batches_tracked`` is not
-    advanced (flax has no such counter).  When a :func:`remat` scope
-    recomputes the forward in the backward pass, the running statistics do
-    not move again.
+    ``BatchNorm2d``), then applies the ReLU.  Train mode reproduces flax's
+    ``_compute_stats`` and ``_normalize`` through
+    :func:`..ops.cuda.batch_norm.batch_norm_train` (its Hopper kernels for a
+    CUDA tensor, with the ReLU folded in; the torch-op composition for a
+    CPU one): batch statistics in at least fp32 whatever the input dtype,
+    the fast variance ``E[x^2] - E[x]^2`` clamped at 0, ``(x - mean) *
+    (scale * rsqrt(var + eps)) + bias`` in that precision, cast back to the
+    input's dtype; the running statistics move by ``r <- 0.9 r + 0.1 stat``
+    with the BIASED batch variance, where stock ``BatchNorm2d`` takes the
+    unbiased one.  ``num_batches_tracked`` is not advanced (flax has no
+    such counter).  When a :func:`remat` scope recomputes the forward in
+    the backward pass, the running statistics do not move again.
 
     Over a data axis of D > 1 ranks the batch statistics are those of
     the global batch (the JAX package's BN under a ``data`` mesh): the
-    per-channel sums of x and x^2 are summed over the data group by a
-    differentiable all-reduce, whose backward sums the gradient there
-    again.  The ranks of a model group hold the same whole activations and
-    take no part in it.  A remat recompute issues the all-reduce again, in
-    the same order on every rank.
+    per-channel sums of x and x^2 are summed over the data group, and the
+    backward sums its per-channel sums there again.  The ranks of a model
+    group hold the same whole activations and take no part in it.  A remat
+    recompute issues the all-reduce again, in the same order on every rank.
 
     Each call, in either mode, is one ``bn`` span while a profiler records
-    (:mod:`..utils.spans`).
+    (:mod:`..utils.spans`); in eval mode the ReLU follows the span.
     """
 
-    def __init__(self, ch: int):
-        super().__init__(ch, eps=_BN_EPS, momentum=1.0 - _BN_MOMENTUM)
+    def __init__(self, ch: int, relu: bool = False):
+        super().__init__(ch, eps=bn_ops.EPS, momentum=1.0 - bn_ops.MOMENTUM)
+        self.relu = relu
 
     def forward(self, x):
         with span("bn"):
-            if not self.training:
-                return super().forward(x)
-            return self._train_forward(x)
-
-    def _train_forward(self, x):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        dims = (0, 2, 3)
-        ranks = axis_size(DATA_AXIS)
-        if ranks > 1:
-            # Global-batch statistics: one differentiable all-reduce of the
-            # per-channel [sum x, sum x^2]; every data rank holds a batch of
-            # the same shape, so the global count is the local one times D.
-            n = xf.numel() // xf.shape[1] * ranks
-            sums = all_reduce_sum(torch.cat([xf.sum(dim=dims),
-                                             (xf * xf).sum(dim=dims)]),
-                                  DATA_AXIS)
-            mean, mean2 = (sums / n).chunk(2)
-        else:
-            mean = xf.mean(dim=dims)
-            mean2 = (xf * xf).mean(dim=dims)
-        var = (mean2 - mean * mean).clamp_min(0.0)
-        if not getattr(_RECOMPUTE, "on", False):
-            self._update_running(mean.detach(), var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = ((xf - mean[:, None, None]) * mul[:, None, None]
-             + self.bias[:, None, None])
-        return y.to(x.dtype)
-
-    @torch.no_grad()
-    def _update_running(self, mean, var):
-        m = _BN_MOMENTUM
-        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.training:
+                return bn_ops.batch_norm_train(
+                    x, self.weight, self.bias, self.running_mean, self.running_var,
+                    eps=self.eps, relu=self.relu,
+                    update_running=not getattr(_RECOMPUTE, "on", False))
+            y = super().forward(x)
+        return F.relu(y) if self.relu else y
 
 
 class Conv2d(nn.Conv2d):
@@ -141,7 +117,8 @@ class Conv2d(nn.Conv2d):
 
 
 def _bn(ch: int) -> BatchNorm:
-    return BatchNorm(ch)
+    """Every hourglass BN is followed by a ReLU."""
+    return BatchNorm(ch, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -164,11 +141,11 @@ class Bottleneck(nn.Module):
                      if in_ch != out_ch else None)
 
     def forward(self, x):
-        y = F.relu(self.bn1(x))
+        y = self.bn1(x)
         residual = x if self.proj is None else self.proj(y)
         y = self.conv1(y)
-        y = self.conv2(F.relu(self.bn2(y)))
-        y = self.conv3(F.relu(self.bn3(y)))
+        y = self.conv2(self.bn2(y))
+        y = self.conv3(self.bn3(y))
         return y + residual
 
 
@@ -244,7 +221,7 @@ class HourglassNet(nn.Module):
     def forward(self, images):
         x = images.permute(0, 3, 1, 2)
         with self._autocast(x):
-            x = F.relu(self.stem_bn(self.stem_conv(x)))
+            x = self.stem_bn(self.stem_conv(x))
             x = self.stem_res1(x)
             x = F.max_pool2d(x, 2, 2)
             x = self.stem_res3(self.stem_res2(x))
@@ -254,8 +231,7 @@ class HourglassNet(nn.Module):
                 hg = getattr(self, f"hg{i}")
                 y = remat(hg, x) if checkpointed else hg(x)
                 y = getattr(self, f"post_res{i}")(y)
-                y = F.relu(getattr(self, f"fc{i}_bn")(
-                    getattr(self, f"fc{i}_conv")(y)))
+                y = getattr(self, f"fc{i}_bn")(getattr(self, f"fc{i}_conv")(y))
                 score = getattr(self, f"score{i}")(y)
                 scores.append(score)
                 if i < self.num_stacks - 1:

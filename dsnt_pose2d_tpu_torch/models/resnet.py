@@ -50,7 +50,7 @@ class BasicBlock(nn.Module):
                  dilation: int = 1):
         super().__init__()
         self.conv1 = _conv(in_ch, planes, 3, stride, dilation)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, relu=True)
         self.conv2 = _conv(planes, planes, 3, 1, dilation)
         self.bn2 = BatchNorm(planes)
         self.proj = self.bn_proj = None
@@ -59,7 +59,7 @@ class BasicBlock(nn.Module):
             self.bn_proj = BatchNorm(planes)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn1(self.conv1(x))
         y = self.bn2(self.conv2(y))
         if self.proj is not None:
             x = self.bn_proj(self.proj(x))
@@ -74,9 +74,9 @@ class BottleneckBlock(nn.Module):
         super().__init__()
         out_ch = 4 * planes
         self.conv1 = _conv(in_ch, planes, 1)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, relu=True)
         self.conv2 = _conv(planes, planes, 3, stride, dilation)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, relu=True)
         self.conv3 = _conv(planes, out_ch, 1)
         self.bn3 = BatchNorm(out_ch)
         self.proj = self.bn_proj = None
@@ -85,8 +85,8 @@ class BottleneckBlock(nn.Module):
             self.bn_proj = BatchNorm(out_ch)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn1(self.conv1(x))
+        y = self.bn2(self.conv2(y))
         y = self.bn3(self.conv3(y))
         if self.proj is not None:
             x = self.bn_proj(self.proj(x))
@@ -127,7 +127,7 @@ class ResNetPose(nn.Module):
         block = BasicBlock if kind == "basic" else BottleneckBlock
         self.dtype = dtype
         self.stem_conv = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.stem_bn = BatchNorm(64)
+        self.stem_bn = BatchNorm(64, relu=True)
         self.plan = stage_plan(arch, dilate, truncate)
         in_ch = 64
         for stage, b, planes, stride, dilation in self.plan:
@@ -154,7 +154,7 @@ class ResNetPose(nn.Module):
     def forward(self, images):
         x = images.permute(0, 3, 1, 2)
         with self._autocast(x):
-            x = F.relu(self.stem_bn(self.stem_conv(x)))
+            x = self.stem_bn(self.stem_conv(x))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             for stage, b, *_ in self.plan:
                 x = getattr(self, f"stage{stage}_block{b}")(x)

@@ -10,13 +10,22 @@ row_shift      shift_rows                       row_shift.cu  ops/pallas/row_shi
 calib_copy     calib_copy                       calib.cu      bench_kernel.py::calibrate::_copy_k
 calib_exp      calib_exp                        calib.cu      bench_kernel.py::calibrate::_exp_k
 calib_smax     calib_smax                       calib.cu      bench_kernel.py::calibrate::_smax_k
+bn_fwd         batch_norm_train (forward)       batch_norm.cu none: the JAX package leaves train-mode BN
+                                                              to XLA, which fuses it; the port's torch-op
+                                                              composition took most of the training
+                                                              steps' device time and launches
+bn_bwd         batch_norm_train (its backward)  batch_norm.cu none (as bn_fwd)
 =============  ===============================  ============  ============================================
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-PyTorch version for a CPU tensor, and counts its kernel launches.
+PyTorch version for a CPU tensor, and counts its kernel launches (``bn_fwd``
+and ``bn_bwd`` count calls: two kernels each, ``bn_stats_kernel`` then
+``bn_fwd_kernel``, ``bn_dstats_kernel`` then ``bn_bwd_kernel``).
 """
 
-from . import calib, dsnt_head, row_shift
+from . import batch_norm, calib, dsnt_head, row_shift
+from .batch_norm import (batch_norm_train, batch_norm_train_bwd_reference,
+                         batch_norm_train_reference)
 from .dsnt_head import (MAX_HW, PREACT_KINDS, REG_KINDS, fused_dsnt_head,
                         fused_dsnt_head_bwd, fused_dsnt_head_bwd_reference,
                         fused_dsnt_head_reference)
@@ -30,6 +39,8 @@ KERNEL_MODULES = {
     "calib_copy": (calib, "copy_launches"),
     "calib_exp": (calib, "exp_launches"),
     "calib_smax": (calib, "smax_launches"),
+    "bn_fwd": (batch_norm, "fwd_launches"),
+    "bn_bwd": (batch_norm, "bwd_launches"),
 }
 
 
@@ -45,7 +56,8 @@ def reset_launch_counts():
 
 
 __all__ = [
-    "KERNEL_MODULES", "MAX_HW", "PREACT_KINDS", "REG_KINDS", "fused_dsnt_head",
+    "KERNEL_MODULES", "batch_norm_train", "batch_norm_train_bwd_reference",
+    "batch_norm_train_reference", "MAX_HW", "PREACT_KINDS", "REG_KINDS", "fused_dsnt_head",
     "fused_dsnt_head_bwd", "fused_dsnt_head_bwd_reference", "fused_dsnt_head_reference",
     "launch_counts", "reset_launch_counts", "shift_rows", "shift_rows_reference",
 ]

@@ -24,7 +24,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
-SOURCES = ("dsnt_head", "row_shift", "calib")
+SOURCES = ("dsnt_head", "row_shift", "calib", "batch_norm")
 # sm_90a: Hopper with its architecture-specific features.  No --use_fast_math
 # and no -ftz: the kernels keep full-precision expf/logf, IEEE division and
 # denormals.  -Xptxas=-v writes registers/shared memory per kernel to the log.

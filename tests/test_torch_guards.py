@@ -33,7 +33,8 @@ NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "cli.common", "cli.evaluate", "cli.infer", "cli.train",
                "data.loader", "data.mpii", "data.pack", "data.prepare",
                "data.resident", "models.import_torch", "models.resnet",
-               "models.vit", "native", "ops.cuda.calib", "ops.decode",
+               "models.vit", "native", "ops.cuda.batch_norm", "ops.cuda.calib",
+               "ops.decode",
                "parallel", "parallel.mesh", "parallel.tp",
                "train.checkpoint", "train.dashboard", "train.metrics",
                "train.profiling", "utils.visualization", "tools",

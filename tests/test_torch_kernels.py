@@ -18,8 +18,13 @@ torch.exp), softmax rtol 2e-6 / atol 1e-9 (4096 terms summed in another
 order than torch.softmax).  Last, ViT-T/16's train and eval steps at
 config #5's 448 px against the same steps on the kernels' plain versions,
 at ``chip_smoke.py``'s train and serve tolerances, and its train step with
-remat against the one without.
+remat against the one without.  Train-mode BatchNorm's four kernels
+against the plain composition at the main path's shapes, with the
+tolerances stated at ``test_bn_kernel_matches_plain``; bitwise across runs;
+two launches forward and two backward.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -591,3 +596,164 @@ def test_vit_t16_remat_step_matches_no_remat(cuda, monkeypatch):
     assert torch.equal(out[True]["loss"], out[False]["loss"])
     assert abs(out[True]["grad_norm"].item() - out[False]["grad_norm"].item()) <= (
         1e-2 * out[False]["grad_norm"].item())
+
+
+# -- train-mode BatchNorm (+ReLU) ---------------------------------------------
+
+# The main path's shapes: hg8 at batch 32 (256 and 128 channels, maps 64x64
+# down to 4x4), ResNet-50 2x (the stem's 64 x 224x224, the last stage's 2048
+# x 56x56), and the resolution grid's 7x7 and 28x28; each in both layouts
+# the convs hand it: NCHW on the train step (its images reach the stem conv
+# transposed in memory), channels-last from an NHWC image batch.
+BN_SHAPES = [(32, 256, 64, 64), (32, 128, 64, 64), (32, 256, 32, 32),
+             (32, 256, 16, 16), (32, 256, 8, 8), (32, 256, 4, 4),
+             (32, 64, 224, 224), (32, 2048, 56, 56), (32, 512, 7, 7),
+             (32, 256, 28, 28)]
+BN_LAYOUTS = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
+
+
+def _bn_inputs(shape, dtype, memory_format, seed, device):
+    """x with a per-channel scale s in [0.5, 2] and offset ~ N(0, (s/2)^2)
+    (E[x^2] - E[x]^2 cancels in part, as in a trained net, with E[x]^2 / var
+    at most ~2 at 3 sigma), one constant channel (the variance's clamp), an
+    upstream gradient, and fp32 parameters and running statistics."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=g, device=device)
+    s = torch.rand(c, 1, 1, generator=g, device=device) * 1.5 + 0.5
+    x = (x + torch.randn(c, 1, 1, generator=g, device=device) * 0.5) * s
+    x[:, 1] = 0.75
+    x = x.to(dtype).contiguous(memory_format=memory_format)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype).contiguous(
+        memory_format=memory_format)
+    params = [torch.rand(c, generator=g, device=device) + 0.5,
+              torch.randn(c, generator=g, device=device) * 0.1,
+              torch.randn(c, generator=g, device=device),
+              torch.rand(c, generator=g, device=device) + 0.5]
+    return x, dy, params
+
+
+def _bn_run(fn, x, dy, params, relu, grad_mask=None):
+    """y, the running statistics and (dx, dweight, dbias) of one call of
+    ``fn`` from copies of the parameters; ``grad_mask`` multiplies dy."""
+    w, b, rm, rv = (p.clone() for p in params)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    y = fn(xg, w, b, rm, rv, relu=relu)
+    y.backward(dy if grad_mask is None else dy * grad_mask)
+    return y.detach(), rm, rv, xg.grad, w.grad, b.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", sorted(BN_LAYOUTS))
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernel_matches_plain(cuda, shape, layout, dtype, relu):
+    # Tolerances.  The kernels and the plain composition sum each channel's
+    # n values in fp32 in other orders, which moves a sum by ~1e-6 of the
+    # sum of its terms' magnitudes (held at 1e-4 for sums of up to 1.6 M
+    # terms); the fast variance E[x^2] - E[x]^2 carries that to var and
+    # rstd scaled by E[x^2] / var (~3 here), and y and dx by as much,
+    # relative (1e-5 of a value, 1e-4 of the largest).  In bf16, y and dx
+    # are then rounded: a value near a rounding boundary lands one ulp
+    # apart, up to 2**-7 of it at the bottom of a binade.  The plain
+    # path's ReLU mask is taken from the kernel's output, so an element
+    # whose y lies within a rounding error of 0 is masked alike.
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm as bn
+
+    x, dy, params = _bn_inputs(shape, dtype, BN_LAYOUTS[layout], 7, cuda)
+    reset_launch_counts()
+    got = _bn_run(bn.batch_norm_train, x, dy, params, relu)
+    torch.cuda.synchronize()
+    assert (launch_counts()["bn_fwd"], launch_counts()["bn_bwd"]) == (1, 1)
+    mask = (got[0] > 0).to(dtype) if relu else None
+    exp = _bn_run(bn.batch_norm_train_reference, x, dy, params, False, mask)
+    if relu:
+        exp = (torch.relu(exp[0]), *exp[1:])
+    assert got[0].stride() == x.stride() and got[3].stride() == x.stride()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for name, a, e in (("y", got[0], exp[0]), ("dx", got[3], exp[3])):
+        a, e = a.float(), e.float()
+        err = (a - e).abs()
+        lim = ulp * e.abs() + 1e-4 * e.abs().max()
+        assert (err <= lim).all(), (name, err.max().item(), (err > lim).sum().item())
+    xf = x.double()
+    n = xf.numel() // shape[1]
+    dims = (0, 2, 3)
+    mean = xf.mean(dims)
+    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0)
+    old = [p.double() for p in params[2:]]
+    scale = [(xf.abs().sum(dims) / n).clamp_min(1e-30),
+             ((xf * xf).sum(dims) / n).clamp_min(1e-30)]
+    for k, (r, stat) in enumerate(zip(got[1:3], (mean, var))):
+        want = 0.9 * old[k] + 0.1 * stat
+        assert ((r.double() - want).abs() <= 1e-4 * 0.1 * scale[k] + 1e-6 * want.abs()).all()
+    g = dy.double() * (mask.double() if relu else 1.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    xhat = (xf - mean[:, None, None]) * rstd[:, None, None]
+    for a, e, terms in ((got[5], exp[5], g.abs().sum(dims)),
+                        (got[4], exp[4], (g * xhat).abs().sum(dims))):
+        assert ((a.double() - e.double()).abs() <= 1e-4 * terms + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", [(32, 256, 64, 64), (32, 64, 224, 224), (32, 2048, 56, 56)])
+def test_bn_kernel_bitwise_repeat(cuda, shape, relu):
+    # Cross-block sums are added in a fixed order (no float atomics).
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm as bn
+
+    x, dy, params = _bn_inputs(shape, torch.bfloat16, torch.channels_last, 3, cuda)
+    first = _bn_run(bn.batch_norm_train, x, dy, params, relu)
+    again = _bn_run(bn.batch_norm_train, x, dy, params, relu)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 256, 64, 64), (32, 256, 4, 4), (32, 2048, 56, 56)])
+@pytest.mark.parametrize("layout", sorted(BN_LAYOUTS))
+def test_bn_kernel_launches_two_and_two(cuda, shape, layout):
+    # Two kernels forward (statistics, normalise) and two backward (the
+    # gradient's sums, dx), and no other device work but the counters'
+    # one-time fill.
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm as bn
+
+    x, dy, params = _bn_inputs(shape, torch.bfloat16, BN_LAYOUTS[layout], 5, cuda)
+    _bn_run(bn.batch_norm_train, x, dy, params, True)     # the counters exist
+    w, b, rm, rv = (p.clone() for p in params)
+    w.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = bn.batch_norm_train(xg, w, b, rm, rv, relu=True)
+        y.backward(dy)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names, "the profiler saw no device activity"
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    want = ["bn_stats_kernel", "bn_fwd_kernel", "bn_dstats_kernel", "bn_bwd_kernel"]
+    assert [[k for k in want if re.search(rf"\b{k}\b", n)] for n in kernels] == [
+        [k] for k in want], kernels
+
+
+@pytest.mark.cuda
+def test_bn_kernel_refuses_what_it_does_not_take(cuda):
+    from dsnt_pose2d_tpu_torch.ops.cuda import batch_norm as bn
+
+    c = 4
+    params = [torch.ones(c, device=cuda), torch.zeros(c, device=cuda),
+              torch.zeros(c, device=cuda), torch.ones(c, device=cuda)]
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        bn.batch_norm_train(torch.ones(2, c, 3, 3, dtype=torch.float64, device=cuda),
+                            *[p.double() for p in params])
+    with pytest.raises(ValueError, match="fp32"):
+        bn.batch_norm_train(torch.ones(2, c, 3, 3, device=cuda), params[0].double(),
+                            *params[1:])
+    with pytest.raises(ValueError, match=r"\(N, C, H, W\)"):
+        bn.batch_norm_train(torch.ones(2, c, 9, device=cuda), *params)

@@ -111,18 +111,18 @@ def test_remat_bf16_keeps_autocast_in_the_recompute():
 
 def test_remat_recomputes_and_moves_bn_once(monkeypatch):
     calls = {"forward": 0, "update": 0}
-    forward, update = hourglass.BatchNorm.forward, hourglass.BatchNorm._update_running
+    forward, train_bn = hourglass.BatchNorm.forward, hourglass.bn_ops.batch_norm_train
 
     def counting_forward(self, x):
         calls["forward"] += 1
         return forward(self, x)
 
-    def counting_update(self, mean, var):
-        calls["update"] += 1
-        return update(self, mean, var)
+    def counting_train_bn(*args, update_running=True, **kw):
+        calls["update"] += update_running
+        return train_bn(*args, update_running=update_running, **kw)
 
     monkeypatch.setattr(hourglass.BatchNorm, "forward", counting_forward)
-    monkeypatch.setattr(hourglass.BatchNorm, "_update_running", counting_update)
+    monkeypatch.setattr(hourglass.bn_ops, "batch_norm_train", counting_train_bn)
     counts = {}
     for remat in (False, True):
         calls.update(forward=0, update=0)
