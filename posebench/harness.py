@@ -5,8 +5,9 @@ belongs to it by the names its files give.
 - ``posebench/workloads/<cell>.json``: the configuration, the traffic mix,
   the chips, the limits of the comparison that decides ``correct``;
 - ``posebench/configs/<config>.json``: the port's configuration as it is
-  run (``config``), its source, what was cut or assumed, and how the
-  weights are made;
+  run (``config``), its source, what was cut or assumed, how the weights
+  are made, and optionally the ``reference`` backbone module's name
+  (``posebench/reference/<reference>.py``);
 - ``posebench/traffic/<traffic>.json``: the mix's parameters, among them
   the ``generator`` that drives it, ``posebench/generators/<generator>.py``;
 - ``posebench/metrics/<metric>.py``: one reader a per-layer metric.
@@ -53,7 +54,13 @@ class Cell:
 
     @property
     def config(self) -> dict:
-        return self.config_file["config"]
+        """The run configuration the yardstick's functions take: the port's
+        (``config``), with the configuration file's ``reference`` where it
+        names one."""
+        cfg = self.config_file["config"]
+        if "reference" not in self.config_file:
+            return cfg
+        return {**cfg, "reference": self.config_file["reference"]}
 
     @property
     def limits(self) -> dict:
@@ -127,7 +134,7 @@ def program_config(cell: Cell):
 
     from dsnt_pose2d_tpu_torch.utils.config import config_from_json
 
-    cfg = config_from_json(json.dumps(cell.config))
+    cfg = config_from_json(json.dumps(cell.config_file["config"]))
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=cell.seed))
 
 

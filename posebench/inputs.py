@@ -9,7 +9,10 @@ lengths, the original -> canvas affine and the canvas margin.  They come
 back to the host, where a packed split lives before it is staged.
 
 The weights follow flax's default initializers (LeCun-normal conv kernels
-truncated at two deviations, zero biases, unit BN scales).  Then one fp32
+truncated at two deviations, zero biases, unit BN scales), then the
+backbone module's own draws for the leaves these leave (a transformer's
+dense kernels, norms and position embeddings) and its residual branches
+scaled (:mod:`.reference.model` says what a backbone module holds).  Then one fp32
 pass of the reference over a few eval crops writes each BN's batch
 statistics into its running ones, as training would, and scales each
 stack's score conv so that its logits have a set deviation, stack by stack
@@ -30,7 +33,6 @@ from .reference import preprocess as P
 
 NUM_JOINTS = 16
 CANVAS_MARGIN = 1.5        # the canvas spans 1.5x the person box, as the packer's
-TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated at +-2
 _BLOCK = 256               # canvases made per call
 
 
@@ -84,53 +86,30 @@ def make_split(rows: int, canvas: int, seed: int, device) -> dict:
             **{k: v.float().cpu().numpy() for k, v in meta.items()}}
 
 
-def _lecun_kernels_(convs: list, gen: torch.Generator):
-    """Every conv kernel LeCun-normal (variance 1 / fan-in), truncated at 2
-    standard deviations, from one draw."""
-    sizes = [c.weight.numel() for c in convs]
-    stds = torch.tensor([(1.0 / c.weight[0].numel()) ** 0.5 / TRUNC_STD for c in convs],
-                        device=convs[0].weight.device)
-    flat = torch.empty(sum(sizes), device=stds.device)
-    torch.nn.init.trunc_normal_(flat, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    flat.mul_(torch.repeat_interleave(stds, torch.tensor(sizes, device=stds.device)))
-    for conv, part in zip(convs, flat.split(sizes)):
-        conv.weight.copy_(part.view_as(conv.weight))
-
-
-@torch.no_grad()
-def _scale_residual_branches(net, scale: float):
-    """Each residual branch's last layer scaled by ``scale``: the hourglass
-    bottleneck's last conv, the ResNet block's last BN scale (torchvision's
-    ``zero_init_residual`` at ``scale`` 0)."""
-    for m in net.modules():
-        if isinstance(m, M.Bottleneck):
-            m.conv3.weight.mul_(scale)
-        elif isinstance(m, M.BottleneckBlock):
-            m.bn3.weight.fill_(scale)
-        elif isinstance(m, M.BasicBlock):
-            m.bn2.weight.fill_(scale)
-
-
 @torch.no_grad()
 def make_weights(cfg: dict, seed: int, calib: dict, device, logit_std: float,
                  residual_scale: float = 1.0) -> dict:
     """The state dict of ``cfg``'s model from ``seed`` (on ``device``):
-    flax's initializers, then BN statistics and score-conv scales from one
+    flax's initializers for the convs and BNs, the backbone module's for
+    the other leaves, its residual branches scaled by ``residual_scale``,
+    then BN statistics and score-conv scales from one
     train-mode pass of the reference over the ``calib`` records' eval
     crops."""
     with torch.device("meta"):
-        net = M.PoseNet(cfg["model"])
+        net = M.PoseNet(cfg)
     net = net.to_empty(device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
-    _lecun_kernels_(convs, gen)
+    M.lecun_normal_(convs, gen)
     for m in net.modules():
         if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
             m.bias.zero_()
         elif isinstance(m, M.BatchNorm):
             m.reset_parameters()
-    _scale_residual_branches(net, residual_scale)
+    backbone = M.backbone_of(cfg)
+    backbone.init_weights_(net, gen)
+    backbone.scale_residual_(net, residual_scale)
     scores = net.backbone.score_convs()
 
     def temper(conv, _inputs, out):
@@ -159,7 +138,7 @@ def flops(cfg: dict, batch: int, train: bool) -> float:
 
     size = M.input_size(cfg["model"])
     with torch.device("meta"):
-        net = M.PoseNet(cfg["model"]).train(train)
+        net = M.PoseNet(cfg).train(train)
         images = torch.empty(batch, size, size, 3, requires_grad=False)
     counter = FlopCounterMode(display=False)
     with counter:

@@ -53,10 +53,10 @@ def step_calls(cfg: dict, batch: int, train: bool) -> dict:
     configuration: the head's forward (and in training its backward) over
     every stack's maps (serving decodes the last stack only), and the
     shear warp's two row-shift passes over channel-interleaved rows."""
-    mcfg = cfg["model"]
-    size, hm = M.input_size(mcfg), M.heatmap_size(mcfg)
+    mcfg, backbone = cfg["model"], M.backbone_of(cfg)
+    size, hm = M.input_size(mcfg), backbone.heatmap_side(mcfg)
     canvas = inputs.canvas_side(cfg)
-    stacks = int(mcfg["base"][2:]) if mcfg["base"].startswith("hg") else 1
+    stacks = backbone.stacks(mcfg)
     e = P.shear_extents(canvas, size, P.max_shear(cfg["data"], train))
     joints = mcfg["num_joints"]
     head = {"rows": (stacks if train else 1) * batch * joints, "hw": hm * hm,

@@ -1,12 +1,24 @@
 """Plain fp32 PyTorch models that decide ``correct``: the stacked hourglass
 (Newell et al., arXiv:1603.06937) and the dilated ResNet of the DSNT paper
-(Nibali et al., arXiv:1801.07372), with flax's BatchNorm.
+(Nibali et al., arXiv:1801.07372), with flax's BatchNorm, and the layers
+that other backbones' modules build on.
 
 A frozen copy of the math of the port's ``models/hourglass.py`` and
 ``models/resnet.py`` with the same submodule names, so one state dict loads
 into both.  No autocast, no kernels, no tensor or data parallelism: every
 conv runs in fp32, and :func:`strict_fp32` keeps TF32 off around the
 reference's work.
+
+The backbone is a lookup (:func:`backbone_of`): a configuration file's
+``"reference": "<name>"`` names ``posebench/reference/<name>.py``, and a
+file without the key gets this module.  A backbone module provides
+``backbone(model)`` (the ``nn.Module`` under the port's key layout, whose
+``forward(images, remat=False)`` returns ``(S, B, J, H, W)`` fp32 maps
+and whose ``score_convs()`` lists each stack's score conv),
+``heatmap_side(model)``, ``stacks(model)``, ``init_weights_(net,
+generator)`` (every leaf that the conv and BN draws of
+``inputs.make_weights`` leave) and ``scale_residual_(net, scale)``;
+``model`` is the configuration's ``model`` group.
 
 Two switches serve the harness and its controls, not the comparison:
 
@@ -20,6 +32,8 @@ Two switches serve the harness and its controls, not the comparison:
 from __future__ import annotations
 
 import contextlib
+import importlib
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +41,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 BN_EPS = 1e-5
+TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated at +-2
+
 
 class _Mode:
     """Process-wide, so that autograd's threads (which recompute a
@@ -52,8 +68,9 @@ def strict_fp32():
 
 @contextlib.contextmanager
 def quantized():
-    """Inside the block the network computes in fp8: every conv's weight,
-    and the output of every conv, BN and residual block, rounded to e4m3
+    """Inside the block the network computes in fp8: every conv's and
+    dense layer's operands and every matrix product's, and the output of
+    every conv, dense layer, product, norm and residual block, rounded to e4m3
     in the forward pass and its gradient to e5m2 in the backward pass (one
     scale a tensor each), the sums still accumulated in wider types, as fp8
     training does."""
@@ -94,6 +111,35 @@ class Conv2d(nn.Conv2d):
         return fp8(self._conv_forward(fp8(x), fp8(self.weight), self.bias))
 
 
+class Linear(nn.Linear):
+    def forward(self, x):
+        if not _MODE.quant:
+            return super().forward(x)
+        return fp8(F.linear(fp8(x), fp8(self.weight), self.bias))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``, on fp8 operands and rounded to fp8 under :func:`quantized`."""
+    if not _MODE.quant:
+        return torch.matmul(a, b)
+    return fp8(torch.matmul(fp8(a), fp8(b)))
+
+
+@torch.no_grad()
+def lecun_normal_(layers: list, gen: torch.Generator):
+    """Every layer's kernel LeCun-normal (variance 1 / fan-in, the fan-in
+    being a kernel's size over one output), truncated at 2 standard
+    deviations, from one draw."""
+    sizes = [m.weight.numel() for m in layers]
+    stds = torch.tensor([(1.0 / m.weight[0].numel()) ** 0.5 / TRUNC_STD for m in layers],
+                        device=layers[0].weight.device)
+    flat = torch.empty(sum(sizes), device=stds.device)
+    torch.nn.init.trunc_normal_(flat, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    flat.mul_(torch.repeat_interleave(stds, torch.tensor(sizes, device=stds.device)))
+    for m, part in zip(layers, flat.split(sizes)):
+        m.weight.copy_(part.view_as(m.weight))
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW, computed
     in fp32 and returned in the input's dtype.
@@ -125,7 +171,7 @@ class BatchNorm(nn.BatchNorm2d):
         return fp8(y.to(x.dtype))
 
 
-def _checkpointed(module, x, remat: bool):
+def checkpointed(module, x, remat: bool):
     if remat and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(module, x, use_reentrant=False)
     return module(x)
@@ -211,7 +257,7 @@ class HourglassNet(nn.Module):
         x = self.stem_res3(self.stem_res2(x))
         scores = []
         for i in range(self.num_stacks):
-            y = _checkpointed(getattr(self, f"hg{i}"), x, remat)
+            y = checkpointed(getattr(self, f"hg{i}"), x, remat)
             y = getattr(self, f"post_res{i}")(y)
             y = F.relu(getattr(self, f"fc{i}_bn")(getattr(self, f"fc{i}_conv")(y)))
             score = getattr(self, f"score{i}")(y)
@@ -327,27 +373,74 @@ class ResNetPose(nn.Module):
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage, b, *_ in self.plan:
-            x = _checkpointed(getattr(self, f"stage{stage}_block{b}"), x, remat)
+            x = checkpointed(getattr(self, f"stage{stage}_block{b}"), x, remat)
         return self.score(x)[None]
 
 
+def _family(model: dict) -> str:
+    if model["base"].startswith("hg"):
+        return "hg"
+    if model["base"] in RESNET_SPECS:
+        return "resnet"
+    raise ValueError(f"the reference has no backbone {model['base']!r}")
+
+
+def backbone(model: dict) -> nn.Module:
+    """The hourglass (``hg<stacks>``) or the ResNet (``RESNET_SPECS``) of
+    ``model``."""
+    joints = model.get("num_joints", 16)
+    if _family(model) == "hg":
+        return HourglassNet(stacks(model), joints, model.get("hg_features", 256),
+                            model.get("hg_depth", 4))
+    return ResNetPose(model["base"], joints, model.get("dilate", 0), model.get("truncate", 0))
+
+
+def stacks(model: dict) -> int:
+    return int(model["base"][2:]) if _family(model) == "hg" else 1
+
+
+def heatmap_side(model: dict) -> int:
+    size = input_size(model)
+    if _family(model) == "hg":
+        return size // 4
+    return size // (32 // 2 ** (model.get("dilate", 0) + model.get("truncate", 0)))
+
+
+def init_weights_(net: nn.Module, generator: torch.Generator):
+    """Nothing: the conv and BN draws cover every leaf of these backbones."""
+
+
+@torch.no_grad()
+def scale_residual_(net: nn.Module, scale: float):
+    """Each residual branch's last layer scaled by ``scale``: the hourglass
+    bottleneck's last conv, the ResNet block's last BN scale (torchvision's
+    ``zero_init_residual`` at ``scale`` 0)."""
+    for m in net.modules():
+        if isinstance(m, Bottleneck):
+            m.conv3.weight.mul_(scale)
+        elif isinstance(m, BottleneckBlock):
+            m.bn3.weight.fill_(scale)
+        elif isinstance(m, BasicBlock):
+            m.bn2.weight.fill_(scale)
+
+
+def backbone_of(cfg: dict):
+    """The backbone module of the run configuration ``cfg``:
+    ``posebench/reference/<cfg["reference"]>.py``, or this module where
+    ``cfg`` names none."""
+    name = cfg.get("reference")
+    if name is None:
+        return sys.modules[__name__]
+    return importlib.import_module(f"{__package__}.{name}")
+
+
 class PoseNet(nn.Module):
-    """The backbone of a model config under the port's key layout
+    """The backbone of a run configuration under the port's key layout
     (``backbone.<name>``)."""
 
-    def __init__(self, model: dict):
+    def __init__(self, cfg: dict):
         super().__init__()
-        base = model["base"]
-        joints = model.get("num_joints", 16)
-        if base.startswith("hg"):
-            self.backbone = HourglassNet(int(base[2:]), joints,
-                                         model.get("hg_features", 256),
-                                         model.get("hg_depth", 4))
-        elif base in RESNET_SPECS:
-            self.backbone = ResNetPose(base, joints, model.get("dilate", 0),
-                                       model.get("truncate", 0))
-        else:
-            raise ValueError(f"the reference has no backbone {base!r}")
+        self.backbone = backbone_of(cfg).backbone(cfg["model"])
 
     def forward(self, images, remat: bool = False):
         return self.backbone(images, remat=remat)
@@ -357,13 +450,6 @@ def input_size(model: dict) -> int:
     if model.get("input_size"):
         return model["input_size"]
     return 256 if model["base"].startswith("hg") else 224
-
-
-def heatmap_size(model: dict) -> int:
-    size = input_size(model)
-    if model["base"].startswith("hg"):
-        return size // 4
-    return size // (32 // 2 ** (model.get("dilate", 0) + model.get("truncate", 0)))
 
 
 @contextlib.contextmanager

@@ -41,7 +41,7 @@ def check_optim(optim: dict):
 def build(cfg: dict, weights: dict, device) -> torch.nn.Module:
     head.check_model(cfg["model"])
     with torch.device("meta"):
-        net = M.PoseNet(cfg["model"])
+        net = M.PoseNet(cfg)
     net = net.to_empty(device=device)
     net.load_state_dict({k: v.to(device) for k, v in weights.items()}, strict=True)
     return net

@@ -54,9 +54,12 @@ def test_benchmark_file():
         assert len(w["why"]) <= 200 and w["chips"] == 1
     for c in BENCH["configs"]:
         assert (ROOT.parent / c["file"]).is_file() and c["file"].startswith("posebench/")
+    e2e = {e["name"]: e for e in BENCH["end_to_end"]}
     for m in BENCH["per_layer"]:
         assert set(m["workloads"]) <= cells
-        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
+        assert m["moves"] in e2e
+        # every cell of the metric reports the end-to-end metric it moves
+        assert set(m["workloads"]) <= set(e2e[m["moves"]].get("workloads", cells))
         assert callable(metrics.reader(m["name"]))
 
 
@@ -95,6 +98,12 @@ def test_metric_readers_found_by_name():
         "row_shift_roofline_pct")
 
 
+def test_window_img_s_reads_the_window_rate():
+    ctx = harness.Readings(trace=None, units=0, calls={}, window={"train_img_s": 101.5},
+                           peaks={}, compute_dtype="bf16")
+    assert metrics.reader("window_img_s.host_bound")(ctx) == 101.5
+
+
 def _event(name, start, end, cuda=False, parent=None):
     dev = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
     return SimpleNamespace(name=name, device_type=dev, is_user_annotation=False,
@@ -127,5 +136,5 @@ def test_readers_leave_out_what_is_missing():
     ctx = harness.Readings(trace=empty, units=0, calls={}, window={}, peaks={},
                            compute_dtype="bf16")
     for name in ("device_idle_pct", "step_mfu", "launches_per_step", "head_fwd_roofline_pct",
-                 "row_shift_roofline_pct", "serve_peak_mem_gib"):
+                 "row_shift_roofline_pct", "serve_peak_mem_gib", "window_img_s"):
         assert metrics.reader(name)(ctx) is None
