@@ -62,7 +62,7 @@ def add_model_args(p: argparse.ArgumentParser):
     g = p.add_argument_group("model")
     g.add_argument("--base-model", default="hg1",
                    help="hg{1,2,4,8} | resnet{18,34,50,101} | "
-                        "vit_{t16,s16,b16}")
+                        "vit_{t16,s16,b16} | hrnet_w48")
     g.add_argument("--dilate", type=int, default=0)
     g.add_argument("--truncate", type=int, default=0)
     g.add_argument("--output-strat", default="dsnt",

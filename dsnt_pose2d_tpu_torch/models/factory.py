@@ -1,5 +1,6 @@
 """Model factory (port of ``dsnt_pose2d_tpu/models/factory.py``: the
-hourglass, ResNet and ViT bases).
+hourglass, ResNet and ViT bases; and HRNet-W48, which the JAX package
+lacks).
 
 :class:`PoseModel` bundles the ``nn.Module`` with the config's loss and
 decode functions, the same surface as the JAX package's ``PoseModel``.
@@ -8,7 +9,7 @@ initializers (LeCun-normal conv and dense kernels, zero biases, unit BN
 and LayerNorm scales, the ViT's position embeddings normal with std 0.02,
 the fc head's kernel normal with std 1e-3), or are converted from flax
 variables by :mod:`.from_jax`.  ``cfg.remat`` reaches the hourglass and
-the ViT; a ResNet ignores it, as in the JAX package.
+the ViT; a ResNet ignores it, as in the JAX package, and so does HRNet.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..parallel import tp
 from ..utils.config import ModelConfig
 from .heads import PoseOutput, decode_coords, pose_loss
 from .hourglass import HourglassNet
+from .hrnet import HRNET_SPECS, HRNetPose
 from .resnet import RESNET_SPECS, ResNetPose
 from .vit import LayerNorm, ViTPose
 
@@ -62,6 +64,9 @@ class PoseNet(nn.Module):
                 num_joints=cfg.num_joints, dim=dim, depth=depth,
                 num_heads=heads, input_size=cfg.resolved_input_size,
                 dtype=dtype, remat=cfg.remat)
+        elif cfg.base in HRNET_SPECS:
+            self.backbone = HRNetPose(num_joints=cfg.num_joints, dtype=dtype,
+                                      **HRNET_SPECS[cfg.base])
         else:
             raise ValueError(f"unknown base model {cfg.base!r}")
         self.fc_head_kernel = self.fc_head_bias = None
@@ -112,7 +117,7 @@ class PoseModel:
         """Output heatmap side implied by base/dilate/truncate (the JAX
         package's formula)."""
         size = self.cfg.resolved_input_size
-        if self.cfg.base.startswith("hg"):
+        if self.cfg.base.startswith(("hg", "hrnet")):
             return size // 4
         if self.cfg.base.startswith("vit"):
             return size // 8

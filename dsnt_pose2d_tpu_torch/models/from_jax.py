@@ -161,6 +161,9 @@ def pose_net_from_jax(variables: dict, cfg) -> dict:
         out = resnet_from_jax(variables)
     elif cfg.base.startswith("vit"):
         out = vit_from_jax(variables)
+    elif cfg.base.startswith("hrnet"):
+        raise ValueError(f"the JAX package has no HRNet: {cfg.base!r} has no flax "
+                         "variables to convert")
     else:
         raise ValueError(f"unknown base model {cfg.base!r}")
     for name in ("fc_head_kernel", "fc_head_bias"):

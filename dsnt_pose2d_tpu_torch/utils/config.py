@@ -6,6 +6,11 @@ one JSON file in ``configs/`` loads into both packages.  Fields that select
 JAX/TPU machinery keep their names and meaning: ``use_pallas`` selects the
 fused DSNT-head kernel (here the CUDA kernel), ``warp_method='shear'`` the
 row-shift kernel.
+
+The port also accepts bases that the JAX package lacks (``hrnet_w48``, an
+HRNet, at the end of :data:`BASE_MODELS`).  Such a base has no preset under
+``configs/``: ``tests/test_cli.py`` pins those presets to the JAX package's
+six, and every preset there loads in both packages.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ BASE_MODELS = (
     "resnet18", "resnet34", "resnet50", "resnet101",
     # BASELINE stretch config #5: ViT backbones (tiny/small/base, 16px patch).
     "vit_t16", "vit_s16", "vit_b16",
+    # The port alone: HRNet-W48 (Sun et al., arXiv:1902.09212).
+    "hrnet_w48",
 )
 OUTPUT_STRATS = ("dsnt", "gauss", "fc")
 PREACTS = ("softmax", "thresholded_softmax", "relu", "abs", "sigmoid")
@@ -72,7 +79,7 @@ class ModelConfig:
     # Architecture-scale knobs (reference values by default; shrink for CI).
     hg_features: int = 256
     hg_depth: int = 4
-    input_size: int = 0  # 0 = default for base (256 hg / 224 resnet)
+    input_size: int = 0  # 0 = default for base (256 hg, hrnet / 224 resnet)
     # Numeric-compatibility version stamped into checkpoints (see
     # MODEL_VERSION above); configs deserialized without the field are v1.
     model_version: int = MODEL_VERSION
@@ -95,7 +102,7 @@ class ModelConfig:
     def resolved_input_size(self) -> int:
         if self.input_size:
             return self.input_size
-        if self.base.startswith("hg"):
+        if self.base.startswith(("hg", "hrnet")):
             return 256
         if self.base.startswith("vit"):
             return 448  # 2x-resolution stretch config

@@ -10,8 +10,10 @@ norm, clip and update); its serving step ``serve.feed``,
 ``serve.preprocess``, ``serve.backbone`` and ``serve.head`` (the decode and
 the map to original-image pixels; the eval step opens the serving spans
 too); every ``models/hourglass.py::BatchNorm`` call opens ``bn`` inside
-them.  A span is on exactly while a ``torch.profiler`` records: off, it is
-one read of torch's flag and a shared no-op context; on, it enters
+them, and each exchange unit of an HRNet module (``models/hrnet.py``)
+``fuse``, around the BNs of its fuse terms.  A span is on exactly while a
+``torch.profiler`` records: off, it is one read of torch's flag and a
+shared no-op context; on, it enters
 ``record_function(name)``, so that it lands in the profiler's trace on the
 clock of the device's kernels and copies (``bn`` excepted, see
 :data:`LOG_ONLY`), and logs a :class:`Span` (name, parent span, unit, start

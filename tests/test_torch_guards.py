@@ -32,8 +32,8 @@ def _modules():
 NEW_MODULES = ("bench.kernel", "bench.step", "bench.timing", "cli",
                "cli.common", "cli.evaluate", "cli.infer", "cli.train",
                "data.loader", "data.mpii", "data.pack", "data.prepare",
-               "data.resident", "models.import_torch", "models.resnet",
-               "models.vit", "native", "ops.cuda.batch_norm", "ops.cuda.calib",
+               "data.resident", "models.hrnet", "models.import_torch",
+               "models.resnet", "models.vit", "native", "ops.cuda.batch_norm", "ops.cuda.calib",
                "ops.decode",
                "parallel", "parallel.mesh", "parallel.tp",
                "train.checkpoint", "train.dashboard", "train.metrics",

@@ -602,13 +602,15 @@ def test_vit_t16_remat_step_matches_no_remat(cuda, monkeypatch):
 
 # The main path's shapes: hg8 at batch 32 (256 and 128 channels, maps 64x64
 # down to 4x4), ResNet-50 2x (the stem's 64 x 224x224, the last stage's 2048
-# x 56x56), and the resolution grid's 7x7 and 28x28; each in both layouts
+# x 56x56), the resolution grid's 7x7 and 28x28, and HRNet-W48's four
+# branches (48 x 64x64 down to 384 x 8x8); each in both layouts
 # the convs hand it: NCHW on the train step (its images reach the stem conv
 # transposed in memory), channels-last from an NHWC image batch.
 BN_SHAPES = [(32, 256, 64, 64), (32, 128, 64, 64), (32, 256, 32, 32),
              (32, 256, 16, 16), (32, 256, 8, 8), (32, 256, 4, 4),
              (32, 64, 224, 224), (32, 2048, 56, 56), (32, 512, 7, 7),
-             (32, 256, 28, 28)]
+             (32, 256, 28, 28), (32, 48, 64, 64), (32, 96, 32, 32),
+             (32, 192, 16, 16), (32, 384, 8, 8)]
 BN_LAYOUTS = {"channels_last": torch.channels_last, "nchw": torch.contiguous_format}
 
 

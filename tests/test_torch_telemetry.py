@@ -21,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 from dsnt_pose2d_tpu_torch.data.mpii import ArrayDataset
 from dsnt_pose2d_tpu_torch.data.resident import ResidentTrainData
 from dsnt_pose2d_tpu_torch.data.synthetic import make_synthetic_mpii
+from dsnt_pose2d_tpu_torch.models import hrnet
 from dsnt_pose2d_tpu_torch.models.factory import build_pose_model
 from dsnt_pose2d_tpu_torch.models.hourglass import BatchNorm
 from dsnt_pose2d_tpu_torch.train import loop
@@ -168,6 +169,70 @@ def test_a_train_step_alone_logs_one_unit():
     top = sorted((s for s in u.spans if s.parent is None), key=lambda s: s.start_ns)
     assert [s.name for s in top] == TRAIN_SPANS
     spans.clear()
+
+
+# Widths 8/16/32/64, one block a branch, one module a stage: 3 exchange units.
+TINY_HRNET = {"widths": (8, 16, 32, 64), "blocks": 1, "modules": (1, 1, 1),
+              "stage1_blocks": 1}
+
+
+@pytest.fixture
+def hrnet_step(monkeypatch):
+    """A tiny HRNet's train step, built by the factory for ``hrnet_w48``:
+    ``(step, model, batch)``."""
+    monkeypatch.setitem(hrnet.HRNET_SPECS, "hrnet_w48", TINY_HRNET)
+    cfg = Config(model=ModelConfig(base="hrnet_w48", input_size=64, dtype="float32",
+                                   reg="js"),
+                 data=DataConfig(canvas_size=96))
+    model = build_pose_model(cfg.model, device="cpu", seed=0)
+    step = loop.make_train_fn(model, cfg, "cpu")
+    spans.clear()
+    yield step, model, make_synthetic_mpii(2, 96, seed=0)
+    spans.clear()
+
+
+def test_hrnet_logs_a_fuse_span_an_exchange_unit(hrnet_step):
+    step, model, batch = hrnet_step
+    with _cpu_profile() as prof:
+        step(batch)
+    (u,) = spans.log()
+    fuse = [s for s in u.spans if s.name == "fuse"]
+    modules = [m for m in model.net.modules() if isinstance(m, hrnet.HighResolutionModule)]
+    assert len(fuse) == len(modules) == 3
+    assert {s.parent for s in fuse} == {"train.backbone"}
+    # The fuse terms' BNs run inside the fuse spans, the branches' outside.
+    fuse_bns = sum(isinstance(m, BatchNorm) for mod in modules
+                   for name, term in mod.named_children() if name.startswith("fuse")
+                   for m in term.modules())
+    inner = [s for s in u.spans if s.name == "bn" and s.parent == "fuse"]
+    assert len(inner) == fuse_bns == 12
+    assert all(any(f.start_ns <= s.start_ns and s.end_ns <= f.end_ns for f in fuse)
+               for s in inner)
+    assert sum(s.name == "bn" for s in u.spans) == _bns(model)
+    # A range of the profiler's trace, where bn is the log's alone.
+    names = {e.name for e in prof.events()}
+    assert "fuse" in names and "bn" not in names
+
+
+def test_fuse_host_pct_reads_the_fuse_spans(hrnet_step):
+    from posebench import harness
+    from posebench.metrics import fuse_host_pct
+    from posebench.trace import TraceSummary
+
+    step, _, batch = hrnet_step
+    with _cpu_profile():
+        step(batch)
+        step(batch)
+    # The reader's device-only segment of one unit is the first of the two.
+    ctx = harness.Readings(trace=TraceSummary(window_s=1.0, busy_s=0.5, launches=1),
+                           units=1, calls={}, window={}, peaks={}, compute_dtype="fp32")
+    first = spans.log()[0]
+    fuse = sum(s.ns for s in first.spans if s.name == "fuse")
+    whole = sum(s.ns for s in first.spans if s.name == "train.backbone")
+    got = fuse_host_pct.read(ctx)
+    assert got == pytest.approx(100.0 * fuse / whole) and 0 < got < 100
+    spans.clear()
+    assert fuse_host_pct.read(ctx) is None
 
 
 def test_infer_step_logs_one_request():
