@@ -27,7 +27,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-from ..device import strict_fp32
+from ..device import device_constant, strict_fp32
 from ..ops.cuda.row_shift import shift_rows, shift_rows_reference
 from ..utils.config import DataConfig
 from . import transforms as T
@@ -272,8 +272,8 @@ def preprocess_batch(canvas, coords_px, mask, head_len_px, canvas_from_orig,
     if train and draws.get("jitter") is not None:
         warped = (warped * draws["jitter"].to(dev).float()).clamp(0.0, 1.0)
 
-    mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
+    mean = device_constant(cfg.mean, torch.float32, dev)
+    std = device_constant(cfg.std, torch.float32, dev)
     images = (warped - mean) / std
 
     # Joint coordinates through the same affine, + L/R swap under flip.

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_constant
+
 MPII_SCALE_BOX_PX = 200.0
 
 # MPII 16-joint order: 0 r_ankle, 1 r_knee, 2 r_hip, 3 l_hip, 4 l_knee,
@@ -30,10 +32,12 @@ def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flip_permutation(num_joints: int = 16, pairs=MPII_FLIP_PAIRS,
                      device=None) -> torch.Tensor:
+    """The joint order of the mirrored image (int64, on ``device``, the CPU
+    if None): a shared constant (:func:`..device.device_constant`)."""
     perm = list(range(num_joints))
     for a, b in pairs:
         perm[a], perm[b] = perm[b], perm[a]
-    return torch.tensor(perm, dtype=torch.int64, device=device)
+    return device_constant(perm, torch.int64, device or "cpu")
 
 
 def _stack3(rows) -> torch.Tensor:

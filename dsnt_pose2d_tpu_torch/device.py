@@ -1,4 +1,5 @@
-"""The default-device rule of the port, and strict-fp32 math.
+"""The default-device rule of the port, strict-fp32 math, and constants
+held on the device.
 
 Entry points take ``device=`` and default to ``"cuda"``.  Without a card they
 raise unless the caller asked for the CPU: work never moves to the CPU
@@ -12,6 +13,9 @@ import contextlib
 import torch
 
 DEFAULT_DEVICE = "cuda"
+
+# (values, dtype, device) -> the tensor device_constant made for them.
+_CONSTANTS: dict = {}
 
 
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
@@ -42,3 +46,19 @@ def strict_fp32():
         yield
     finally:
         mm.allow_tf32, cudnn.allow_tf32 = old
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` for a flat
+    sequence of numbers, made at the first call and shared by every later
+    one: on a card a new one is a synchronising copy from pageable memory,
+    which also stops a CUDA graph's capture.  Callers read it, never write
+    it."""
+    key = (tuple(values), dtype, torch.device(device))
+    const = _CONSTANTS.get(key)
+    if const is None:
+        # A normal tensor, usable in and out of inference mode.
+        with torch.inference_mode(False):
+            const = torch.tensor(key[0], dtype=dtype, device=key[2])
+        _CONSTANTS[key] = const
+    return const

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import device_constant
+
 
 def normalized_linspace(length: int, dtype=torch.float32,
                         device=None) -> torch.Tensor:
@@ -30,13 +32,12 @@ def pixel_to_normalized(coords_px: torch.Tensor, size_hw) -> torch.Tensor:
     """Continuous pixel coords (x, y), pixel-center units in ``[0, L-1]``,
     to normalized (-1, 1) space; ``size_hw = (H, W)``."""
     h, w = size_hw
-    scale = torch.tensor([w, h], dtype=coords_px.dtype, device=coords_px.device)
+    scale = device_constant((w, h), coords_px.dtype, coords_px.device)
     return (2.0 * coords_px + 1.0) / scale - 1.0
 
 
 def normalized_to_pixel(coords_norm: torch.Tensor, size_hw) -> torch.Tensor:
     """Inverse of :func:`pixel_to_normalized`."""
     h, w = size_hw
-    scale = torch.tensor([w, h], dtype=coords_norm.dtype,
-                         device=coords_norm.device)
+    scale = device_constant((w, h), coords_norm.dtype, coords_norm.device)
     return ((coords_norm + 1.0) * scale - 1.0) / 2.0

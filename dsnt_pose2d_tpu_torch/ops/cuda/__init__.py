@@ -20,7 +20,10 @@ bn_bwd         batch_norm_train (its backward)  batch_norm.cu none (as bn_fwd)
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version for a CPU tensor, and counts its kernel launches (``bn_fwd``
 and ``bn_bwd`` count calls: two kernels each, ``bn_stats_kernel`` then
-``bn_fwd_kernel``, ``bn_dstats_kernel`` then ``bn_bwd_kernel``).
+``bn_fwd_kernel``, ``bn_dstats_kernel`` then ``bn_bwd_kernel``).  A wrapper
+called inside a CUDA graph's capture counts a launch that did not run: the
+capturing code takes it back, and adds it at each replay
+(:func:`add_launch_counts`).
 """
 
 from . import batch_norm, calib, dsnt_head, row_shift
@@ -55,8 +58,17 @@ def reset_launch_counts():
         setattr(mod, counter, 0)
 
 
+def add_launch_counts(counts: dict):
+    """Add ``counts`` (kernel -> launches, negative to take away) to the
+    counters: the replay of a CUDA graph launches the kernels that its
+    capture counted without running them."""
+    for name, n in counts.items():
+        mod, counter = KERNEL_MODULES[name]
+        setattr(mod, counter, getattr(mod, counter) + n)
+
+
 __all__ = [
-    "KERNEL_MODULES", "batch_norm_train", "batch_norm_train_bwd_reference",
+    "KERNEL_MODULES", "add_launch_counts", "batch_norm_train", "batch_norm_train_bwd_reference",
     "batch_norm_train_reference", "MAX_HW", "PREACT_KINDS", "REG_KINDS", "fused_dsnt_head",
     "fused_dsnt_head_bwd", "fused_dsnt_head_bwd_reference", "fused_dsnt_head_reference",
     "launch_counts", "reset_launch_counts", "shift_rows", "shift_rows_reference",

@@ -5,7 +5,9 @@
 preprocess with this step's augmentation draws -> train-mode forward -> loss
 -> backward -> optimizer step, BN running statistics updated, step + 1.
 :func:`make_infer_fn` is the serving step: canvases -> deterministic eval
-preprocess -> forward -> decode of the last stack -> original-image pixels.
+preprocess -> forward -> decode of the last stack -> original-image pixels,
+on a card replayed as one CUDA graph per request shape
+(:func:`serve_graph_counts` counts captures, replays and eager calls).
 :func:`make_eval_fn` is the same path plus the loss over all stacks and the
 PCKh counts, returning what the JAX package's ``_build_eval_body`` returns.
 Infer and eval run the module in eval mode under
@@ -46,7 +48,8 @@ are given.
 While a ``torch.profiler`` records, a train step is one ``train`` unit of
 :mod:`..utils.spans`' log and a serving call one ``serve`` unit, each
 with its spans by layer (``train.feed`` ... ``train.optimizer``,
-``serve.feed`` ... ``serve.head``); the resident wrappers' gathers are
+``serve.feed`` ... ``serve.head``, or ``serve.feed`` and ``serve.graph``
+where a graph replays); the resident wrappers' gathers are
 ``train.feed`` spans logged before the steps they feed.  With no profiler
 the spans cost a read of a flag each.
 """
@@ -70,6 +73,7 @@ from ..data.transforms import flip_permutation, invert, transform_coords
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..evaluation.pckh import PCKhEvaluator, pckh_batch_counts
 from ..models.factory import PoseModel
+from ..ops import cuda as cuda_ops
 from ..parallel import tp
 from ..parallel.mesh import (DATA_AXIS, all_reduce_sum_, axis_index, axis_size,
                              check_row_order, is_main_process, make_mesh,
@@ -430,31 +434,158 @@ def _prefetch_dispatch_groups(batch_iter, k: int, device, depth: int = 1):
                        depth)
 
 
+# The CUDA serving steps' calls since reset_serve_graph_counts(): graphs
+# captured, graphs replayed, and calls run eagerly.
+_SERVE_GRAPH_COUNTS = dict.fromkeys(("captures", "replays", "eager"), 0)
+
+
+def serve_graph_counts() -> dict:
+    """``{"captures", "replays", "eager"}``: the CUDA serving steps' graph
+    captures, replays and eager calls since the last
+    :func:`reset_serve_graph_counts` (a CPU step counts none).  Their hit
+    share is replays / (replays + eager)."""
+    return dict(_SERVE_GRAPH_COUNTS)
+
+
+def reset_serve_graph_counts():
+    for k in _SERVE_GRAPH_COUNTS:
+        _SERVE_GRAPH_COUNTS[k] = 0
+
+
+class _ServeGraph:
+    """The CUDA graph of a serving step's body for one request shape: static
+    input tensors laid out as the first batch's, the body captured on them,
+    its static output, and the ported kernels' launches it holds."""
+
+    def __init__(self, batch: dict):
+        self.inputs = {k: torch.empty_strided(v.size(), v.stride(), dtype=v.dtype,
+                                              device=v.device).copy_(v)
+                       for k, v in batch.items()}
+
+    @staticmethod
+    def shared() -> tuple:
+        """The memory pool and the capture stream that one step's graphs
+        share (replayed one at a time, on one stream)."""
+        return torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+
+    def capture(self, serve, pool, stream) -> torch.Tensor:
+        """Run ``serve`` once on ``stream`` (cuDNN, cuBLAS and the
+        allocator set up there), then capture it there; returns that run's
+        answer.  The launches counted in the capture, which ran nothing, are
+        taken back and added at each replay."""
+        cur = torch.cuda.current_stream()
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            answer = serve(self.inputs)
+        before = cuda_ops.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: a loader's thread may copy to the card meanwhile.
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.output = serve(self.inputs)
+        self.launches = {k: n - before[k]
+                         for k, n in cuda_ops.launch_counts().items()}
+        cuda_ops.add_launch_counts({k: -n for k, n in self.launches.items()})
+        cur.wait_stream(stream)
+        answer.record_stream(cur)
+        return answer
+
+    def replay(self, batch: dict) -> torch.Tensor:
+        """The answer to ``batch``: a new tensor, so that a later replay
+        leaves it as it is."""
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        self.graph.replay()
+        cuda_ops.add_launch_counts(self.launches)
+        return self.output.clone()
+
+
+class _ServeGraphs:
+    """A CUDA serving step's body, one :class:`_ServeGraph` per request
+    shape (every fed tensor's shape, strides and dtype).
+
+    A shape's first call runs eagerly; its second captures the graph,
+    unless a profiler records then (a later call does); every later call
+    replays it.  The graphs hold the addresses of the model's parameters
+    and buffers: in-place updates (an optimizer step, ``load_state_dict``)
+    reach a replay, and a tensor replaced in its module (``p.data = ...``,
+    a new ``Parameter``) drops every graph, so a graph never replays freed
+    or stale memory.  A model holding a tensor-parallel shard
+    (:mod:`..parallel.tp`) runs eagerly: its collectives cannot be
+    captured.  The graphs of one step share one memory pool.
+    """
+
+    def __init__(self, serve, net: torch.nn.Module):
+        self.serve = serve
+        # The module tree as the step was made: each module's parameter
+        # and buffer dicts.
+        self.holders = [d for m in net.modules()
+                        for d in (m._parameters, m._buffers) if d]
+        self.weights = None
+
+    def _tensors(self):
+        return (t for d in self.holders for t in d.values() if t is not None)
+
+    def __call__(self, batch: dict) -> torch.Tensor:
+        weights = tuple(t.data_ptr() for t in self._tensors())
+        if weights != self.weights:
+            self.weights, self.graphs, self.seen, self.pool = weights, {}, set(), None
+            self.capturable = all(tp.shard_of(t) is None for t in self._tensors())
+        key = tuple((k, v.shape, v.stride(), v.dtype) for k, v in batch.items())
+        graph = self.graphs.get(key)
+        if graph is not None:
+            _SERVE_GRAPH_COUNTS["replays"] += 1
+            with span("serve.graph"):
+                return graph.replay(batch)
+        if key in self.seen and self.capturable and not spans.recording():
+            if self.pool is None:
+                self.pool = _ServeGraph.shared()
+            graph = _ServeGraph(batch)
+            answer = graph.capture(self.serve, *self.pool)
+            self.graphs[key] = graph
+            _SERVE_GRAPH_COUNTS["captures"] += 1
+            return answer
+        self.seen.add(key)
+        _SERVE_GRAPH_COUNTS["eager"] += 1
+        return self.serve(batch)
+
+
 def make_infer_fn(model: PoseModel, cfg: Config, device=DEFAULT_DEVICE):
     """Serving step: batch of canvases -> ``(B, J, 2)`` original-image px.
 
     One deterministic preprocess, forward and decode per scale of
     ``eval_scales`` (each with its mirrored pass under ``flip_eval``),
-    averaged in original-image pixels.
+    averaged in original-image pixels.  Each call returns a new tensor.
+
+    On a card everything after the copy to the device runs as a CUDA
+    graph per request shape from the shape's second call on
+    (:class:`_ServeGraphs`: the same kernels on the same tensors, launched
+    at once; counted by :func:`serve_graph_counts`).  The CPU runs every
+    call eagerly.
     """
     dev = _check_device(model, device)
     in_size = model.input_size
+
+    def serve(batch: dict) -> torch.Tensor:
+        preds = []
+        for s in _eval_scales(cfg):
+            with span("serve.preprocess"):
+                pre = _preprocess(batch, cfg, in_size, eval_scale=s)
+            _, coords_norm = _decode_averaged(model, cfg, pre["images"])
+            with span("serve.head"):
+                preds.append(_to_original_px(coords_norm, pre["crop_from_orig"],
+                                             in_size))
+        with span("serve.head"):
+            return sum(preds) / len(preds)
+
+    body = _ServeGraphs(serve, model.net) if dev.type == "cuda" else serve
 
     @torch.inference_mode()
     def infer_step(batch: dict) -> torch.Tensor:
         with spans.unit("serve"):
             with span("serve.feed"):
                 batch = _on_device(batch, dev)
-            preds = []
-            for s in _eval_scales(cfg):
-                with span("serve.preprocess"):
-                    pre = _preprocess(batch, cfg, in_size, eval_scale=s)
-                _, coords_norm = _decode_averaged(model, cfg, pre["images"])
-                with span("serve.head"):
-                    preds.append(_to_original_px(coords_norm, pre["crop_from_orig"],
-                                                 in_size))
-            with span("serve.head"):
-                return sum(preds) / len(preds)
+            return body(batch)
 
     return infer_step
 

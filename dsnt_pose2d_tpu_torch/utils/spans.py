@@ -9,7 +9,9 @@ forward), ``train.head`` (the head's forward and the loss),
 norm, clip and update); its serving step ``serve.feed``,
 ``serve.preprocess``, ``serve.backbone`` and ``serve.head`` (the decode and
 the map to original-image pixels; the eval step opens the serving spans
-too); every ``models/hourglass.py::BatchNorm`` call opens ``bn`` inside
+too), or, where the request's shape has a CUDA graph, ``serve.graph`` in
+their place (the copy into the graph's inputs, the replay and the copy of
+its answer); every ``models/hourglass.py::BatchNorm`` call opens ``bn`` inside
 them, and each exchange unit of an HRNet module (``models/hrnet.py``)
 ``fuse``, around the BNs of its fuse terms.  A span is on exactly while a
 ``torch.profiler`` records: off, it is one read of torch's flag and a
@@ -132,6 +134,11 @@ class _Unit:
         if self.unit is not None:
             _LOG.unit = None
             _LOG.entries.append(self.unit)
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records, and spans are on."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def span(name: str):
